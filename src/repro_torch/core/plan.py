@@ -1,0 +1,255 @@
+"""Free Join plans (Sec 3.2) and the plan pipeline of Sec 4.1:
+binary plan -> binary2fj (Fig. 9) -> factor (Fig. 10).
+
+A plan is a list of *nodes*; each node is a list of *subatoms* R(y).
+The nodes must partition every atom's variables (Def 3.5), and a valid plan
+(Def 3.7) requires (a) no two subatoms in one node share a relation and
+(b) each node has a cover: a subatom containing all vars new to that node.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+from repro_torch.relational.schema import Atom, Query
+
+
+@dataclass(frozen=True)
+class Subatom:
+    alias: str
+    vars: tuple[str, ...]
+
+    def __str__(self):
+        return f"{self.alias}({','.join(self.vars)})"
+
+
+@dataclass
+class FreeJoinPlan:
+    query: Query
+    nodes: list[list[Subatom]]
+
+    def __str__(self):
+        return "[" + ", ".join("[" + ", ".join(map(str, n)) + "]" for n in self.nodes) + "]"
+
+    # ---- derived info -------------------------------------------------
+    def vs(self, k: int) -> set[str]:
+        return {v for sa in self.nodes[k] for v in sa.vars}
+
+    def avs(self, k: int) -> set[str]:
+        out: set[str] = set()
+        for j in range(k):
+            out |= self.vs(j)
+        return out
+
+    def covers(self, k: int) -> list[Subatom]:
+        """Subatoms of node k containing all vars in vs(k) - avs(k)."""
+        new = self.vs(k) - self.avs(k)
+        return [sa for sa in self.nodes[k] if new <= set(sa.vars)]
+
+    def partitions(self) -> dict[str, list[tuple[str, ...]]]:
+        """alias -> list of var-groups in node order (the GHT schema,
+        Sec 3.3 build phase, before the trailing [] / cover-last rule)."""
+        out: dict[str, list[tuple[str, ...]]] = {a.alias: [] for a in self.query.atoms}
+        for node in self.nodes:
+            for sa in node:
+                if sa.vars:
+                    out[sa.alias].append(sa.vars)
+        return out
+
+    # ---- validity (Def 3.5 + Def 3.7) ---------------------------------
+    def violations(self):
+        """Yield every validity violation as (rule, locus, message) without
+        raising: rule is a stable identifier ("plan-not-partitioning" |
+        "node-repeats-relation" | "node-missing-cover"), locus the atom
+        alias or node index it anchors to. `validate` raises on the first;
+        a static verifier can report them all."""
+        for atom in self.query.atoms:
+            got = [
+                v for node in self.nodes for sa in node if sa.alias == atom.alias for v in sa.vars
+            ]
+            if sorted(got) != sorted(atom.vars) or len(set(got)) != len(got):
+                yield (
+                    "plan-not-partitioning",
+                    atom.alias,
+                    f"plan does not partition atom {atom}: got {got} for vars {atom.vars}",
+                )
+        for k, node in enumerate(self.nodes):
+            aliases = [sa.alias for sa in node]
+            if len(set(aliases)) != len(aliases):
+                yield ("node-repeats-relation", k, f"node {k} repeats a relation: {node}")
+            if not self.covers(k):
+                yield (
+                    "node-missing-cover",
+                    k,
+                    f"node {k} has no cover: new vars {self.vs(k) - self.avs(k)}",
+                )
+
+    def validate(self) -> None:
+        for _rule, _locus, message in self.violations():
+            raise ValueError(message)
+
+    def is_valid(self) -> bool:
+        try:
+            self.validate()
+            return True
+        except ValueError:
+            return False
+
+
+# ---------------------------------------------------------------------------
+# Binary plans. A left-deep plan is a list of atoms [R1, ..., Rm].
+# A bushy plan is a tree; we decompose it into left-deep stages (Sec 2.2).
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class BinaryPlan:
+    """A binary join plan tree. Leaves are atoms; internal nodes join two
+    subplans. `decompose()` yields left-deep stages, materializing every
+    right child that is itself a join (Sec 2.2)."""
+
+    left: "BinaryPlan | Atom"
+    right: "BinaryPlan | Atom"
+
+    def decompose(self) -> list[tuple[str, list]]:
+        """Returns stages [(stage_name, [leaf, ...])]. Leaves are Atoms or
+        stage names (strings) referring to earlier materialized stages."""
+        stages: list[tuple[str, list]] = []
+        counter = [0]
+
+        def go(node) -> list:
+            if isinstance(node, Atom):
+                return [node]
+            chain = go(node.left)
+            if isinstance(node.right, Atom):
+                chain.append(node.right)
+                return chain
+            sub = go(node.right)
+            counter[0] += 1
+            name = f"__stage{counter[0]}"
+            stages.append((name, sub))
+            chain.append(name)
+            return chain
+
+        top = go(self)
+        stages.append(("__root", top))
+        return stages
+
+
+def linear(atoms: list[Atom]) -> BinaryPlan:
+    plan: BinaryPlan | Atom = atoms[0]
+    for a in atoms[1:]:
+        plan = BinaryPlan(plan, a)
+    return plan  # type: ignore[return-value]
+
+
+# ---------------------------------------------------------------------------
+# Fig. 9: binary2fj — convert a left-deep plan to an equivalent Free Join plan
+# ---------------------------------------------------------------------------
+
+
+def binary2fj(left_deep: list[Atom], query: Query) -> FreeJoinPlan:
+    r = left_deep[0]
+    node: list[Subatom] = [Subatom(r.alias, tuple(r.vars))]
+    fj: list[list[Subatom]] = []
+    avs: set[str] = set(r.vars)
+    for s in left_deep[1:]:
+        probe_vars = tuple(v for v in s.vars if v in avs)
+        node.append(Subatom(s.alias, probe_vars))
+        fj.append(node)
+        rest = tuple(v for v in s.vars if v not in avs)
+        node = [Subatom(s.alias, rest)]
+        avs |= set(s.vars)
+    fj.append(node)
+    plan = FreeJoinPlan(query, fj)
+    plan.validate()
+    return plan
+
+
+# ---------------------------------------------------------------------------
+# Fig. 10: factor — hoist fully-bound lookups into the previous node.
+# Conservative: within a node, stop at the first lookup that cannot move
+# (preserves the optimizer's lookup order). The node's cover never moves.
+# ---------------------------------------------------------------------------
+
+
+def factor(plan: FreeJoinPlan) -> FreeJoinPlan:
+    nodes = [list(n) for n in plan.nodes]
+    out = FreeJoinPlan(plan.query, nodes)
+    for i in range(len(nodes) - 1, 0, -1):
+        phi, prev = nodes[i], nodes[i - 1]
+        avs = out.avs(i)
+        for alpha in list(phi[1:]):  # lookups only; phi[0] is the cover
+            if set(alpha.vars) <= avs and all(sa.alias != alpha.alias for sa in prev):
+                phi.remove(alpha)
+                prev.append(alpha)
+            else:
+                break  # conservative factoring
+    out.nodes = [n for n in nodes if n]
+    out.validate()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Generic Join plan: a total variable order -> all-singleton-var nodes
+# (Example 3.6, Eq. 3).
+# ---------------------------------------------------------------------------
+
+
+def gj_plan(query: Query, var_order: list[str]) -> FreeJoinPlan:
+    if sorted(var_order) != sorted(query.variables):
+        raise ValueError(f"var order {var_order} != query vars {query.variables}")
+    nodes: list[list[Subatom]] = []
+    for v in var_order:
+        node = [Subatom(a.alias, (v,)) for a in query.atoms if v in a.vars]
+        nodes.append(node)
+    plan = FreeJoinPlan(query, nodes)
+    plan.validate()
+    return plan
+
+
+def var_order_from_fj(plan: FreeJoinPlan) -> list[str]:
+    """Free Join defines only a partial order on vars; extend to a total
+    order by node sequence then subatom order (Sec 5.1 footnote)."""
+    seen: dict[str, None] = {}
+    for node in plan.nodes:
+        for sa in node:
+            for v in sa.vars:
+                seen.setdefault(v)
+    return list(seen)
+
+
+# ---------------------------------------------------------------------------
+# Stage derivation: a (possibly bushy) binary plan tree -> per-stage Free
+# Join plans, root last (Sec 2.2 decomposition + binary2fj + factor per
+# stage). Shared by the eager drivers, the compiled chain, and the
+# optimizer's device cost model.
+# ---------------------------------------------------------------------------
+
+
+def decompose_tree(plan_tree) -> list:
+    """Stages of a plan tree; a bare Atom (single-atom query) is its own
+    root stage."""
+    if isinstance(plan_tree, Atom):
+        return [("__root", [plan_tree])]
+    return plan_tree.decompose()
+
+
+def stage_plans(query: Query, plan_tree, *, factorize: bool = True):
+    """Per-stage Free Join plans of a (possibly bushy) binary plan tree:
+    [(name, fj_plan)], root last. Each stage's plan is built over its own
+    sub-query (fj.query), whose head is the stage's output schema; later
+    stages reference earlier ones by name as ordinary atoms."""
+    stage_schemas: dict[str, tuple[str, ...]] = {}
+    out = []
+    for name, leaves in decompose_tree(plan_tree):
+        atoms = [
+            leaf if isinstance(leaf, Atom) else Atom(leaf, stage_schemas[leaf])
+            for leaf in leaves
+        ]
+        sub_q = Query(atoms)
+        fj = binary2fj(atoms, sub_q)
+        if factorize:
+            fj = factor(fj)
+        stage_schemas[name] = sub_q.head
+        out.append((name, fj))
+    return out

@@ -15,6 +15,11 @@ def pytest_configure(config):
         "chaos: fault-injection resilience tests (selected by default; CI "
         "also runs them standalone with -m chaos)",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc (skips without one; run them on the card "
+        "with -m cuda tests/test_torch_cuda.py)",
+    )
 
 
 def pytest_collection_modifyitems(config, items):

@@ -1,0 +1,107 @@
+"""The port's CUDA kernels on the card, against their plain PyTorch versions.
+
+Marked `cuda`: these tests need an NVIDIA GPU with nvcc, and skip without
+one. Run them on the card with
+
+    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
+
+Every output is an integer, so every comparison is exact. The file
+imports no JAX, so it runs where only PyTorch is installed.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import ExecOptions, compiled_free_join
+from repro_torch.kernels import compact, csr_expand, hash_probe, ops, radix_sort
+from repro_torch.relational.datagen import lowsel_star
+from repro_torch.relational.relation import Relation
+from repro_torch.relational.schema import triangle_query
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def on(device, a) -> torch.Tensor:
+    return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32)).to(device)
+
+
+def assert_kernel_matches_plain(module, name, *args):
+    launches = module.launches
+    got = getattr(module, name)(*args)
+    assert module.launches == launches + 1, "one launch per wrapper call on the card"
+    want = getattr(module, f"{name}_plain")(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert g.is_cuda and g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("n,k,q", [(1, 1, 5), (300, 3, 700), (3000, 2, 1033), (200_000, 2, 300_001)])
+def test_hash_probe_kernel(cuda, n, k, q, rng):
+    keys = np.unique(rng.integers(0, 1 << 24, (2 * n + 1, k)), axis=0)[:n]
+    table = ops.build_table(on(cuda, keys))
+    hits = keys[rng.integers(0, n, q // 2)]
+    qs = np.vstack([hits, rng.integers(-1, 1 << 24, (q - q // 2, k))])
+    assert_kernel_matches_plain(hash_probe, "hash_probe", table.slots, table.keys, on(cuda, qs), 32)
+    dead = on(cuda, np.full((q, k), -1))
+    assert_kernel_matches_plain(hash_probe, "hash_probe", table.slots, table.keys, dead, 32)
+
+
+@pytest.mark.parametrize("f,cap", [(1, 1029), (777, 1500), (100_000, 1 << 20)])
+@pytest.mark.parametrize("total_zero", [False, True])
+def test_csr_expand_kernel(cuda, f, cap, total_zero, rng):
+    counts = rng.integers(0, 7, f)
+    cum = np.cumsum(counts)
+    total = 0 if total_zero else int(cum[-1])
+    assert_kernel_matches_plain(csr_expand, "csr_expand", on(cuda, cum - counts),
+                                on(cuda, rng.integers(0, 1 << 20, f)), on(cuda, [total]), cap)
+
+
+@pytest.mark.parametrize("n,cap,p", [(1, 3, 1.0), (513, 1024, 0.0), (3001, 1011, 0.3),
+                                     (1 << 20, 1 << 19, 0.4)])
+def test_compact_kernel(cuda, n, cap, p, rng):
+    csum = np.cumsum(rng.random(n) < p)
+    assert_kernel_matches_plain(compact, "compact", on(cuda, csum), on(cuda, [int(csum[-1])]), cap)
+
+
+@pytest.mark.parametrize("n", [1, 1013, 1 << 20])
+def test_radix_rank_kernel(cuda, n, rng):
+    digit = rng.integers(0, radix_sort.RADIX, n)
+    csum = np.cumsum(np.arange(radix_sort.RADIX)[:, None] == digit[None, :], axis=1)
+    kd = rng.integers(0, radix_sort.RADIX, n)
+    kt = rng.integers(0, n // radix_sort.RADIX + 3, n)
+    assert_kernel_matches_plain(radix_sort, "radix_rank", on(cuda, csum), on(cuda, kd), on(cuda, kt))
+
+
+def test_segmented_sort_on_card(cuda, rng):
+    cols = [rng.integers(0, 300, 100_000), rng.integers(0, 70_000, 100_000)]
+    got = radix_sort.segmented_sort([on(cuda, c) for c in cols], (9, 17))
+    np.testing.assert_array_equal(got.cpu().numpy(), np.lexsort(tuple(reversed(cols))))
+
+
+@pytest.mark.parametrize("agg", ["count", None])
+def test_slice_on_card_matches_cpu(cuda, agg, rng):
+    q = triangle_query()
+    rels = {a.alias: Relation(a.alias, {v: rng.integers(0, 40, 3000) for v in a.vars})
+            for a in q.atoms}
+    sq, srels = lowsel_star(n=50_000, dom=5_000, sel=0.02, seed=3)
+    for query, relations in ((q, rels), (sq, srels)):
+        before = (hash_probe.launches, csr_expand.launches, compact.launches)
+        got = compiled_free_join(query, relations, agg=agg, options=ExecOptions(device="cuda"))
+        want = compiled_free_join(query, relations, agg=agg, options=ExecOptions(device="cpu"))
+        after = (hash_probe.launches, csr_expand.launches, compact.launches)
+        assert all(x > y for x, y in zip(after[:2], before[:2]))
+        if agg == "count":
+            assert got == want
+        else:
+            for v in query.head:
+                np.testing.assert_array_equal(got[0][v], want[0][v])
+            np.testing.assert_array_equal(got[1], want[1])

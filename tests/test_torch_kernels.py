@@ -1,0 +1,212 @@
+"""Port kernels (plain PyTorch versions, CPU) against the reference Pallas
+kernels in interpret mode and the brute-force oracles.
+
+Inputs are made with a seeded numpy generator and handed to both sides as
+numpy arrays. Every output is an integer, so every comparison is exact.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels.compact import compact_pallas
+from repro.kernels.csr_expand import csr_expand_pallas
+from repro.kernels.hash_probe import QBLK, hash_probe_pallas
+from repro.kernels.hash_probe import mix32 as jmix32
+from repro.kernels.radix_sort import radix_rank_pallas
+from repro_torch.kernels import compact, csr_expand, hash_probe, ops, radix_sort, ref
+
+BLK = 1024  # the Pallas kernels' output block (OBLK/CBLK)
+
+
+def t32(a) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32))
+
+
+def pad_to(n: int, block: int) -> int:
+    return n + (-n) % block
+
+
+def unique_keys(rng, n, k, lo=0, hi=10**6):
+    return np.unique(rng.integers(lo, hi, (2 * n + 1, k)).astype(np.int32), axis=0)[:n]
+
+
+def probe_queries(rng, keys, q):
+    k = keys.shape[1]
+    hits = keys[rng.integers(0, len(keys), q // 2)]
+    misses = rng.integers(10**6, 2 * 10**6, (q - q // 2, k)).astype(np.int32)
+    return np.vstack([hits, misses])
+
+
+# ---- K1: hash probe + the table build --------------------------------------
+
+
+def test_mix32_bit_for_bit(rng):
+    keys = rng.integers(-(2**31), 2**31, (4096, 3), dtype=np.int64).astype(np.int32)
+    keys[:4] = [[0, 0, 0], [-1, -1, -1], [2**31 - 1, -(2**31), 1], [1, 2, 3]]
+    for k in (1, 2, 3):
+        want = np.asarray(jmix32(jnp.asarray(keys[:, :k])))
+        np.testing.assert_array_equal(hash_probe.mix32(t32(keys[:, :k])).numpy(), want)
+
+
+@pytest.mark.parametrize("n,k", [(0, 2), (1, 1), (17, 2), (300, 3), (1000, 1), (5000, 2)])
+def test_build_table_bit_for_bit(n, k, rng):
+    keys = unique_keys(rng, n, k, lo=-(10**6)).reshape(n, k)
+    want = jops.build_table(jnp.asarray(keys))
+    got = ops.build_table(t32(keys))
+    np.testing.assert_array_equal(got.slots.numpy(), np.asarray(want.slots))
+    assert int(got.max_disp) == int(want.max_disp)
+
+
+def test_build_table_adversarial_same_slot():
+    keys = (np.arange(512, dtype=np.int32) * 64)[:, None]
+    want = jops.build_table(jnp.asarray(keys))
+    got = ops.build_table(t32(keys))
+    np.testing.assert_array_equal(got.slots.numpy(), np.asarray(want.slots))
+    np.testing.assert_array_equal(ops.probe(got, t32(keys)).numpy(), np.arange(512))
+
+
+@pytest.mark.parametrize(
+    "n,k,q", [(1, 1, 5), (17, 2, 64), (300, 3, 700), (1000, 1, 2048), (3000, 2, 1033)]
+)
+def test_hash_probe_vs_pallas(n, k, q, rng):
+    keys = unique_keys(rng, n, k)
+    qs = probe_queries(rng, keys, q)
+    table = jops.build_table(jnp.asarray(keys))
+    padded = np.zeros((pad_to(q, QBLK), k), np.int32)
+    padded[:q] = qs
+    want = np.asarray(
+        hash_probe_pallas(table.slots, table.keys, jnp.asarray(padded), interpret=True)
+    )[:q]
+    ttable = ops.build_table(t32(keys))
+    got = hash_probe.hash_probe(ttable.slots, ttable.keys, t32(qs), hash_probe.PROBE_BUDGET)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(ref.hash_probe_ref(t32(keys), t32(qs)).numpy(), want)
+
+
+def test_hash_probe_edge_lanes(rng):
+    """A one-row table, all -1 query lanes (dead frontier lanes probe with
+    group id -1), and an empty query batch."""
+    one = ops.build_table(t32([[5, 9]]))
+    qs = t32([[5, 9], [9, 5], [-1, 9], [5, 8]])
+    np.testing.assert_array_equal(ops.probe(one, qs).numpy(), [0, -1, -1, -1])
+    keys = unique_keys(rng, 700, 2)
+    table = ops.build_table(t32(keys))
+    dead = t32(np.full((1033, 2), -1))
+    want = jops.probe(jops.build_table(jnp.asarray(keys)), jnp.asarray(np.asarray(dead)),
+                      impl="pallas_interpret")
+    np.testing.assert_array_equal(ops.probe(table, dead).numpy(), np.asarray(want))
+    assert ops.probe(table, t32(np.zeros((0, 2)))).shape == (0,)
+
+
+# ---- K2: CSR expansion -------------------------------------------------------
+
+
+def expand_case(rng, f, zero_frac=0.3):
+    counts = rng.integers(0, 7, f).astype(np.int32)
+    counts[rng.random(f) < zero_frac] = 0
+    cum = np.cumsum(counts).astype(np.int32)
+    return (cum - counts).astype(np.int32), rng.integers(0, 10**5, f).astype(np.int32), int(cum[-1])
+
+
+@pytest.mark.parametrize("f,cap", [(1, 1024), (8, 1024), (100, 2048), (777, 1500), (37, 3000)])
+@pytest.mark.parametrize("total_zero", [False, True])
+def test_csr_expand_vs_pallas(f, cap, total_zero, rng):
+    starts, base, total = expand_case(rng, f)
+    total = 0 if total_zero else total
+    want = csr_expand_pallas(
+        jnp.asarray(starts), jnp.asarray(base), jnp.asarray([total], jnp.int32),
+        capacity=pad_to(cap, BLK), interpret=True,
+    )
+    fr, member = csr_expand.csr_expand(t32(starts), t32(base), t32([total]), cap)
+    np.testing.assert_array_equal(fr.numpy(), np.asarray(want[0])[:cap])
+    np.testing.assert_array_equal(member.numpy(), np.asarray(want[1])[:cap])
+
+
+@pytest.mark.parametrize("g,f,cap", [(5, 8, 1024), (50, 100, 2048), (1, 1, 7)])
+def test_csr_expand_capped_vs_oracles(g, f, cap, rng):
+    counts = rng.integers(0, 7, g).astype(np.int32)
+    offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    groups = rng.integers(0, g, f).astype(np.int32)
+    got = ops.csr_expand_capped(t32(offsets), t32(groups), cap)
+    want = ref.csr_expand_ref(t32(offsets), t32(groups), cap)
+    jwant = jops.csr_expand_capped(jnp.asarray(offsets), jnp.asarray(groups), cap)
+    for a, b, c in zip(got, want, jwant):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+        np.testing.assert_array_equal(a.numpy(), np.asarray(c))
+
+
+def test_expand_counted_zero_counts():
+    fr, member, valid, total = ops.expand_counted(t32([0, 5, 9]), t32([2, 0, 3]), 8)
+    assert int(total) == 5
+    np.testing.assert_array_equal(fr.numpy(), [0, 0, 2, 2, 2, -1, -1, -1])
+    np.testing.assert_array_equal(member.numpy(), [0, 1, 9, 10, 11, -1, -1, -1])
+    np.testing.assert_array_equal(valid.numpy(), [True] * 5 + [False] * 3)
+
+
+# ---- K3: compaction ----------------------------------------------------------
+
+
+@pytest.mark.parametrize(
+    "n,cap,p", [(1, 1024, 0.3), (1000, 1024, 0.3), (4096, 2048, 0.3), (777, 1500, 0.5),
+                (513, 1024, 0.0)]
+)
+def test_compact_vs_pallas(n, cap, p, rng):
+    valid = rng.random(n) < p
+    csum = np.cumsum(valid).astype(np.int32)
+    live = int(csum[-1])
+    want = compact_pallas(
+        jnp.asarray(csum), jnp.asarray([live], jnp.int32), capacity=pad_to(cap, BLK),
+        interpret=True,
+    )
+    got = compact.compact(t32(csum), t32([live]), cap)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want)[:cap])
+    src, got_live = ops.compact_indices(torch.from_numpy(valid), cap)
+    ref_src, ref_live = ref.compact_ref(torch.from_numpy(valid), cap)
+    np.testing.assert_array_equal(src.numpy(), ref_src.numpy())
+    assert int(got_live) == int(ref_live) == live
+
+
+def test_compact_indices_empty_frontier():
+    src, live = ops.compact_indices(torch.zeros(0, dtype=torch.bool), 5)
+    np.testing.assert_array_equal(src.numpy(), [-1] * 5)
+    assert int(live) == 0
+
+
+# ---- K4: radix rank ------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n", [1, 64, 1013, 4096])
+def test_radix_rank_vs_pallas(n, rng):
+    digit = rng.integers(0, radix_sort.RADIX, n)
+    onehot = (digit[:, None] == np.arange(radix_sort.RADIX)[None, :]).astype(np.int32)
+    csum = np.cumsum(onehot, axis=0).astype(np.int32)
+    kd = rng.integers(0, radix_sort.RADIX, n).astype(np.int32)
+    kt = rng.integers(0, n // radix_sort.RADIX + 3, n).astype(np.int32)
+    want = radix_rank_pallas(jnp.asarray(csum), jnp.asarray(kd), jnp.asarray(kt), interpret=True)
+    got = radix_sort.radix_rank(t32(csum.T), t32(kd), t32(kt))  # the port is digit-major
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# ---- the wrappers' contract ----------------------------------------------------
+
+
+def test_wrappers_reject_bad_inputs_and_count_only_launches():
+    csum = t32([1, 1, 2])
+    before = (hash_probe.launches, csr_expand.launches, compact.launches, radix_sort.launches)
+    compact.compact(csum, t32([2]), 4)  # a CPU tensor runs the plain version
+    with pytest.raises(ValueError, match="int32"):
+        compact.compact(csum.long(), t32([2]), 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        compact.compact(t32([1, 0, 1, 0])[::2], t32([2]), 4)
+    with pytest.raises(ValueError, match="several devices"):
+        compact.compact(csum, torch.tensor([2], dtype=torch.int32, device="meta"), 4)
+    with pytest.raises(ValueError, match="starts and base"):
+        csr_expand.csr_expand(t32([]), t32([]), t32([0]), 8)
+    with pytest.raises(ValueError, match="power of two"):
+        hash_probe.hash_probe(t32(np.full(43, -1)), t32([[1]]), t32([[1]]), 32)
+    with pytest.raises(ValueError, match="kd and kt"):
+        radix_sort.radix_rank(t32(np.zeros((16, 3))), t32([0, 0]), t32([0, 0]))
+    after = (hash_probe.launches, csr_expand.launches, compact.launches, radix_sort.launches)
+    assert after == before, "plain CPU runs are not kernel launches"
