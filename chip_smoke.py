@@ -4,7 +4,7 @@
 Run from the repository root:  python3 chip_smoke.py [--seed 0]
 
 Phases (any failure raises, and the script exits non-zero):
-  1. Build: compile the four CUDA kernels (K1-K4) from src/repro_torch/
+  1. Build: compile the five CUDA kernels (K1-K5) from src/repro_torch/
      kernels/csrc, one nvcc each, in parallel; print ptxas's register and
      spill lines.
   2. Main path: repro_torch.core.compiled_free_join on the card, with the
@@ -13,15 +13,39 @@ Phases (any failure raises, and the script exits non-zero):
      persons) with agg="count" and agg=None, and the low-selectivity star
      (n = 6,000,000, dom = 300,000, sel = 0.02) with agg="count". Each runs
      cold, then warm; the warm call must build no trie and retry nothing.
-     Results are held against independent numpy oracles, and every kernel
-     must have launched.
-  3. Kernel parity: each kernel against its plain PyTorch version on the
-     card, on inputs captured from the main path plus edge cases (a ragged
-     size, a one-row table, all -1 lanes, total = 0). Equality is exact:
-     every output is an integer (tolerance 0).
-  4. Where a cold call's time goes: plan choice, uploads + trie builds,
+     Results are held against independent numpy oracles, and K1-K4 must
+     have launched.
+  3. Streaming path (counters set to 0 before, read after; K1-K4 must
+     launch): a standing LSQB q1 at SF 10 through StandingQueryEngine,
+     8 ingests of 16,384 new knows edges (another seed), then a delete of
+     16,384 random rows; the count equals the numpy oracle on the live
+     rows after the first batch, after the delete and after a final no-op
+     refresh; no trie is built after registration, each batch is one
+     delta merge per cached layout, the delete tombstone refreshes; median
+     and first ingest latency. The triangle count barely moves under
+     these mutations, so at the end every cached trie (11 appends merged,
+     one delete retired) must equal a full rebuild over the same rows,
+     array for array. Then the stage replay: the reference's
+     streaming workload (benchmarks/bench_streaming.py), a standing bushy
+     count over a 4-chain (n = 60,000, dom = 4,000) with batches of 2,048
+     R rows, 3 warm and 12 timed; after every batch the count equals a
+     compiled_free_join over fresh copies and the T-U stage was replayed;
+     the final count equals the numpy oracle; sustained updates and rows
+     per second.
+  4. K5's path (counter set to 0 before, read after): ops.intersect_sorted
+     of the 1,800,200 knows destinations into the sorted distinct knows
+     sources, held against numpy.
+  5. Kernel parity: each kernel against its plain PyTorch version on the
+     card, on the largest input of each kind its paths give it (the main
+     path's; for K1-K4 also one standing-q1 ingest's, with 16,384-row
+     delta sorts and probes of the merged 2,097,152-row tables, and the
+     stage replay's registration and first batch) plus edge cases (a ragged
+     size, a one-row table or key set, all -1 lanes, total = 0, all hits,
+     all misses, keys outside the key range). Equality is exact: every
+     output is an integer (tolerance 0).
+  6. Where a cold call's time goes: plan choice, uploads + trie builds,
      and the adaptive run, timed separately on fresh relation objects.
-  5. Timing: each kernel, its plain version and, where one PyTorch call
+  7. Timing: each kernel, its plain version and, where one PyTorch call
      computes the same function, that call, as device time from
      torch.profiler after warm-up, beside the least time the card could
      take (bound); CUDA-event wall times per call beside them.
@@ -61,7 +85,12 @@ KERNELS = {
                 "src/repro/kernels/compact.py:29"),
     "radix_rank": ("radix_sort", "src/repro_torch/kernels/csrc/radix_rank.cu",
                    "src/repro/kernels/radix_sort.py:60"),
+    "intersect": ("intersect", "src/repro_torch/kernels/csrc/intersect.cu",
+                  "src/repro/kernels/intersect.py:26"),
 }
+# the kernels compiled_free_join and the streaming path launch; K5's path
+# is the kernel-op entry point ops.intersect_sorted
+JOIN_KERNELS = ("hash_probe", "csr_expand", "compact", "radix_rank")
 
 
 def fail(msg: str):
@@ -173,6 +202,300 @@ def main_path(device: str, seed: int, sf: float, star_n: int, star_dom: int, syn
 
 
 # ---------------------------------------------------------------------------
+# the streaming path: standing queries over ingest
+# ---------------------------------------------------------------------------
+
+
+def chain4_oracle(rels) -> int:
+    """Count of R(a,b) S(b,c) T(c,d) U(d,e): per S row, the R rows ending
+    at its b times the (T, U) paths leaving its c."""
+    c = {a: r.columns for a, r in rels.items()}
+    width = int(max(int(col.max()) for cols in c.values() for col in cols.values())) + 1
+    r_into_b = np.bincount(c["R"]["b"], minlength=width).astype(np.int64)
+    u_from_d = np.bincount(c["U"]["d"], minlength=width).astype(np.int64)
+    tu_from_c = np.bincount(c["T"]["c"], weights=u_from_d[c["T"]["d"]], minlength=width)
+    return int((r_into_b[c["S"]["b"]] * tu_from_c[c["S"]["c"]].astype(np.int64)).sum())
+
+
+def streaming_triangle(device: str, seed: int, sf: float, sync, batches: int = 8,
+                       batch: int = 16_384, deletes: int = 16_384):
+    """A standing LSQB q1 (triangle count over knows at scale factor sf)
+    through StandingQueryEngine, then `batches` ingests of `batch` new
+    edges each (knows_inserts, another seed; the same edges go into all
+    three views of knows) and one delete of `deletes` random rows. The
+    count is held against the numpy oracle on the live rows after the
+    first batch, after the delete, and after a final no-op refresh. After
+    registration no trie is built: every append is one delta merge per
+    cached layout, the delete tombstone refreshes. The triangle count
+    barely moves under these mutations (the generator's source and
+    destination hubs are different persons), so at the end every cached
+    trie is also held against a full rebuild over the same rows. One more
+    ingest runs with the kernels' inputs recorded; returns them."""
+    from repro_torch.core import TRIE_CACHE, ExecOptions, relcache
+    from repro_torch.relational.datagen import knows_inserts, lsqb_knows, lsqb_q1
+    from repro_torch.serve import StandingQueryEngine
+
+    knows = lsqb_knows(sf=sf, seed=seed + 1)
+    q1, rels = lsqb_q1(knows)
+    views = [rels[a] for a in ("K1", "K2", "K3")]  # three renamings of one table
+    # + 2 profiled batches + 1 recorded
+    edges = knows_inserts(sf, (batches + 3) * batch, seed=seed + 2, table_seed=seed + 1)
+    rng = np.random.default_rng(seed + 3)
+
+    def check(when):
+        live = relcache.live_relation(views[0])
+        want = triangle_oracle(live.columns["a"], live.columns["b"])[0]
+        if sq.result != want:
+            fail(f"standing q1 {when}: count {sq.result} != oracle {want}")
+        return want
+
+    eng = StandingQueryEngine(options=ExecOptions(device=device))
+    t = time.perf_counter()
+    sq = eng.register(q1, rels, agg="count")
+    sync()
+    rec = {"rows": knows.num_rows, "register_s": time.perf_counter() - t,
+           "registered_count": check("at registration")}
+    builds = TRIE_CACHE.builds
+    layouts = sum(len(relcache.REGISTRY.namespace(v, "tries")) for v in views)
+    lat, appends, merges = [], [], []
+
+    def ingest(i):
+        """Batch i into all three views; returns (wall s, host append s of
+        the two views appended directly)."""
+        part = slice(i * batch, (i + 1) * batch)
+        m0 = TRIE_CACHE.delta_merges
+        t = time.perf_counter()
+        for v in views[1:]:
+            relcache.append(v, {v.schema[0]: edges["a"][part], v.schema[1]: edges["b"][part]})
+        t_append = time.perf_counter() - t
+        eng.ingest(views[0], {"a": edges["a"][part], "b": edges["b"][part]})  # then refresh
+        sync()
+        merges.append(TRIE_CACHE.delta_merges - m0)
+        if merges[-1] != layouts:
+            fail(f"standing q1 batch {i}: {merges[-1]} delta merges for {layouts} cached layouts")
+        return time.perf_counter() - t, t_append
+
+    for i in range(batches):
+        wall, t_append = ingest(i)
+        lat.append(wall)
+        appends.append(t_append)
+        if i == 0:
+            rec["count_after_first_batch"] = check("after the first batch")
+    rows = rng.choice(relcache.mutation_state(views[0]).total, deletes, replace=False)
+    tomb = TRIE_CACHE.tombstone_refreshes
+    t = time.perf_counter()
+    for v in views:
+        relcache.delete(v, rows)
+    eng.refresh()
+    sync()
+    rec["delete_s"] = time.perf_counter() - t
+    rec["count_after_delete"] = check("after the delete")
+    rec["tombstone_refreshes"] = TRIE_CACHE.tombstone_refreshes - tomb
+    recomputed = eng.stages_recomputed
+    if eng.refresh() or eng.stages_recomputed != recomputed:
+        fail("standing q1: a refresh with no mutation recomputed a stage")
+    rec["count_at_end"] = check("at the end")
+    rec["profile"] = profile_ingest(lambda: ingest(batches), lambda: ingest(batches + 1))
+    rec["count_after_profiled_batches"] = check("after the profiled batches")
+    with capture_largest() as seen:
+        ingest(batches + 2)
+    rec["tries_equal_rebuild"] = check_cached_tries(views)
+    rec["builds_after_registration"] = TRIE_CACHE.builds - builds
+    if rec["builds_after_registration"] or rec["tombstone_refreshes"] <= 0:
+        fail(f"standing q1: {rec['builds_after_registration']} trie builds after registration, "
+             f"{rec['tombstone_refreshes']} tombstone refreshes")
+    rec.update(live_rows=relcache.live_size(views[0]), cached_layouts=layouts,
+               delta_merges_per_batch=merges, first_ingest_ms=lat[0] * 1e3,
+               median_ingest_ms=float(np.median(lat)) * 1e3, ingest_ms=[x * 1e3 for x in lat],
+               host_append_ms_two_views=[x * 1e3 for x in appends])
+    print("streaming q1: " + json.dumps(rec), flush=True)
+    return {name: args for name, (_size, args) in seen.items()}
+
+
+def check_cached_tries(views) -> int:
+    """Hold every cached trie of the views (appends merged, deletes
+    retired) against a full padded, weighted rebuild over the same
+    physical rows and liveness mask, the trie cache's own rebuild branch.
+    Every array must be equal except `order`, which may order rows with
+    equal keys differently (a merge puts delta rows first among equals):
+    it must be a permutation that sorts the columns. A cover-only
+    (trivial) trie has only its columns and weights. Returns the number of
+    tries checked."""
+    import torch
+    from repro_torch.core import relcache
+    from repro_torch.core.compiled import PAD_KEY, _bucket, _LevelOps, build_trie
+
+    checked = 0
+    for view in views:
+        st = relcache.mutation_state(view)
+        for key, entry in relcache.REGISTRY.namespace(view, "tries").items():
+            got = entry["trie"]
+            if entry.get("version") != st.version:
+                fail(f"cached trie {key[0]} of {view.name}: version {entry.get('version')} "
+                     f"of {st.version}")
+            dev = got.mult_col.device
+            cap, pad = _bucket(st.total), _bucket(st.total) - st.total
+            flat = [v for lv in got.levels for v in lv]
+            cols = {v: torch.as_tensor(np.concatenate(
+                [view.columns[v], np.full(pad, PAD_KEY)]).astype(np.int32)).to(dev) for v in flat}
+            mult = np.concatenate([st.mult if st.mult is not None else np.ones(st.total),
+                                   np.zeros(pad)]).astype(np.int32)
+            lops = got.lops if got.trivial else _LevelOps(
+                got.levels, tuple(t is not None for t in got.tables))
+            want = build_trie(cols, lops, budget=got.budget, mult=torch.as_tensor(mult).to(dev))
+            pairs = [("n", got.n == want.n == cap), ("total_mult", got.total_mult == want.total_mult),
+                     ("mult_col", torch.equal(got.mult_col, want.mult_col))]
+            pairs += [(f"cols[{v}]", torch.equal(got.cols[v], want.cols[v])) for v in flat]
+            if got.trivial:
+                flat = ()  # no order, groups or tables
+            pairs += [(f"sorted_cols[{v}]", torch.equal(got.sorted_cols[v], want.sorted_cols[v])
+                       and torch.equal(got.cols[v][got.order.long()], got.sorted_cols[v]))
+                      for v in flat]
+            for arr in ("g", "kpos", "child_base", "child_counts", "row_count", "row_weight"):
+                a, b = getattr(got, arr) or [], getattr(want, arr) or []
+                pairs += [(arr, len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b)))]
+            if not got.trivial:
+                pairs += [("order is a permutation", torch.equal(
+                    torch.sort(got.order).values, torch.arange(cap, dtype=torch.int32, device=dev)))]
+            for d, (a, b) in enumerate(zip(got.tables or [], want.tables or [])):
+                pairs += [(f"tables[{d}]", (a is None) == (b is None) and (a is None or (
+                    torch.equal(a.slots, b.slots) and torch.equal(a.keys, b.keys))))]
+            bad = [name for name, ok in pairs if not bool(ok)]
+            if bad:
+                fail(f"cached trie {key[0]} of {view.name} differs from a rebuild in {bad}")
+            checked += 1
+    return checked
+
+
+def profile_ingest(device_run, host_run, top: int = 8):
+    """Where one ingest's time goes. `device_run` runs under torch.profiler:
+    its wall time, the summed device time of every kernel it launched (the
+    device's busy time; one stream, so nothing overlaps) and the idle
+    share, with the kernels taking most device time. `host_run` runs under
+    cProfile: the host functions with the most time of their own."""
+    import cProfile
+    import pstats
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall = device_run()[0]
+    dev = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_ms = sum(us for _k, us, _n in dev) / 1e3
+    out = {"profiled_wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
+           "idle_share": 1 - busy_ms / (wall * 1e3),
+           "device_ops": sum(n for _k, _us, n in dev),
+           "top_device_ms": [[k[:60], us / 1e3, n]
+                             for k, us, n in sorted(dev, key=lambda x: -x[1])[:top]]}
+    prof_host = cProfile.Profile()
+    prof_host.enable()
+    wall = host_run()[0]
+    prof_host.disable()
+    stats = pstats.Stats(prof_host).stats  # (file, line, fn) -> (cc, nc, tt, ct, callers)
+    own = sorted(((tt, nc, f"{Path(f).name}:{fn}") for (f, _l, fn), (_c, nc, tt, _ct, _cl)
+                  in stats.items()), reverse=True)[:top]
+    out.update(cprofiled_wall_ms=wall * 1e3,
+               top_host_self_ms=[[name, tt * 1e3, nc] for tt, nc, name in own])
+    return out
+
+
+def stage_replay(device: str, seed: int, sync, n: int = 60_000, dom: int = 4_000,
+                 batch: int = 2_048, warm: int = 3, n_meas: int = 12):
+    """The reference's streaming workload (benchmarks/bench_streaming.py,
+    same draws from the same seed): a standing bushy count over the chain
+    R(a,b) S(b,c) T(c,d) U(d,e), plan (R⋈S) ⋈ (T⋈U), with batches of new R
+    rows. After every batch the count equals a compiled_free_join over
+    fresh copies of the relations (the rebuild-per-batch answer) and the
+    T⋈U stage was replayed, not recomputed; the final count equals the
+    numpy oracle. Ingests after the `warm` first are timed. Registration
+    (the one cold run of the T⋈U stage, which compacts) and the first
+    ingest run with the kernels' inputs recorded; returns them."""
+    from repro_torch.core import ExecOptions, compiled_free_join
+    from repro_torch.core.plan import BinaryPlan
+    from repro_torch.relational.relation import Relation
+    from repro_torch.relational.schema import Atom, Query
+    from repro_torch.serve import StandingQueryEngine
+
+    rng = np.random.default_rng(seed)
+    q = Query([Atom("R", ("a", "b")), Atom("S", ("b", "c")), Atom("T", ("c", "d")),
+               Atom("U", ("d", "e"))])
+    at = {a.alias: a for a in q.atoms}
+    tree = BinaryPlan(BinaryPlan(at["R"], at["S"]), BinaryPlan(at["T"], at["U"]))
+    cols = {a.alias: {v: rng.integers(0, dom, n).astype(np.int32) for v in a.vars}
+            for a in q.atoms}
+    deltas = [{v: rng.integers(0, dom, batch).astype(np.int32) for v in ("a", "b")}
+              for _ in range(warm + n_meas)]
+    rels = {a: Relation(a, {v: c.copy() for v, c in cs.items()}) for a, cs in cols.items()}
+    opts = ExecOptions(device=device)
+    eng = StandingQueryEngine(options=opts)
+    timed = []
+
+    def step(i):
+        skipped = eng.stages_skipped
+        t = time.perf_counter()
+        eng.ingest(rels["R"], deltas[i])
+        sync()
+        if i >= warm:
+            timed.append(time.perf_counter() - t)
+        if eng.stages_skipped - skipped != len(sq.states) - 1:
+            fail(f"stage replay batch {i}: {eng.stages_skipped - skipped} stages replayed")
+
+    def check(i):
+        fresh = {a: Relation(a, {v: c.copy() for v, c in r.columns.items()})
+                 for a, r in rels.items()}
+        want = compiled_free_join(q, fresh, tree, agg="count", options=opts)
+        if sq.result != want:
+            fail(f"stage replay batch {i}: standing count {sq.result} != rebuild {want}")
+
+    with capture_largest() as seen:
+        sq = eng.register(q, rels, agg="count", plan_tree=tree)
+        step(0)
+    check(0)
+    for i in range(1, len(deltas)):
+        step(i)
+        check(i)
+    oracle = chain4_oracle(rels)
+    if sq.result != oracle:
+        fail(f"stage replay: final count {sq.result} != oracle {oracle}")
+    wall = sum(timed)
+    rec = {"n": n, "dom": dom, "batch": batch, "warm": warm, "timed_batches": n_meas,
+           "stages": len(sq.states), "final_count": sq.result,
+           "stages_skipped": eng.stages_skipped, "stages_recomputed": eng.stages_recomputed,
+           "timed_s": wall, "updates_per_s": n_meas / wall,
+           "rows_per_s": n_meas * batch / wall}
+    print("stage replay: " + json.dumps(rec), flush=True)
+    return {name: args for name, (_size, args) in seen.items()}
+
+
+# ---------------------------------------------------------------------------
+# K5's path: ops.intersect_sorted
+# ---------------------------------------------------------------------------
+
+
+def intersect_path(knows, device):
+    """ops.intersect_sorted(a, b) at the size LSQB SF 10 gives it: b the
+    sorted distinct knows sources, a every knows destination. Checked
+    against numpy. Returns the arguments the kernel was launched with."""
+    import torch
+    from repro_torch.kernels import ops
+
+    b_host = np.unique(knows.columns["a"]).astype(np.int32)
+    a_host = knows.columns["b"].astype(np.int32)
+    a, b = torch.as_tensor(a_host).to(device), torch.as_tensor(b_host).to(device)
+    mask, pos = ops.intersect_sorted(a, b)
+    want_pos = np.searchsorted(b_host, a_host)
+    want_mask = (want_pos < len(b_host)) & (b_host[np.minimum(want_pos, len(b_host) - 1)] == a_host)
+    if not (np.array_equal(mask.cpu().numpy(), want_mask)
+            and np.array_equal(pos.cpu().numpy(), np.where(want_mask, want_pos, -1))):
+        fail("intersect_sorted differs from numpy's searchsorted on the knows input")
+    print(f"intersect path: {len(a_host)} queries into {len(b_host)} sorted keys, "
+          f"{int(want_mask.sum())} members", flush=True)
+    return a, b
+
+
+# ---------------------------------------------------------------------------
 # phase 3: kernel inputs from the main path, parity
 # ---------------------------------------------------------------------------
 
@@ -205,6 +528,8 @@ def capture_largest():
         wrap(ops, "csr_expand", "csr_expand", lambda s, b, t, c: c * s.shape[0].bit_length()),
         wrap(ops, "compact", "compact", lambda c, live, cap: cap),
         wrap(radix_sort, "radix_rank", "radix_rank", lambda c, kd, kt: kd.shape[0]),
+        # the same pass's segment starts and digits, for K4's library call
+        wrap(radix_sort, "_radix_pass", "radix_pass", lambda p, st, sl, d: p.shape[0]),
     ]
     try:
         yield seen
@@ -270,6 +595,15 @@ def edge_cases(device):
         (t(rcsum), t(digit), t(rng.integers(0, 70, 1013))),
         (t(rcsum[:, :1]), t([digit[0]]), t([1])),
     ]
+    b = np.unique(rng.integers(0, 1 << 20, 10_000))[:5000]
+    cases["intersect"] = [
+        (t([7, 3, -1, 8, 2**31 - 1]), t([7])),  # N = 1
+        (t(rng.integers(0, 1 << 20, 1033)), t(b)),  # Q not a multiple of 1024
+        (t(b[rng.integers(0, len(b), 3001)]), t(b)),  # all hits
+        (t(np.setdiff1d(rng.integers(0, 1 << 20, 2000), b)), t(b)),  # all misses
+        (t(np.concatenate([rng.integers(-(2**31), int(b[0]), 500),
+                           rng.integers(int(b[-1]) + 1, 2**31 - 1, 500)])), t(b)),  # outside
+    ]
     return cases
 
 
@@ -291,16 +625,23 @@ def max_abs_err(got, want) -> int:
     return max(errs)
 
 
-def parity(mods, captured, device):
-    """Exact equality of each kernel and its plain version, on the main
-    path's inputs and the edge cases. Returns name -> max abs error on
-    the main path's inputs."""
+def parity(mods, captured, streamed, paths, device):
+    """Exact equality of each kernel and its plain version, on the largest
+    input its path gave it (`captured`; `paths` names the path), the
+    streaming path's largest (`streamed`: one standing-q1 ingest's, and
+    the stage replay's registration and first batch's) and the edge
+    cases. Returns name -> max abs error on the `captured` input."""
     errors = {}
     cases = edge_cases(device)
+    for name in JOIN_KERNELS:
+        if not any(name in seen for seen in streamed.values()):
+            fail(f"{name}: the streaming path gave it no input to compare on")
     for name in KERNELS:
         if name not in captured:
-            fail(f"{name}: the main path gave it no input to compare on")
-        for i, args in enumerate([captured[name]] + cases[name]):
+            fail(f"{name}: the {paths[name]} gave it no input to compare on")
+        where = [(paths[name], captured[name])] + [
+            (path, seen[name]) for path, seen in streamed.items() if name in seen]
+        for i, args in enumerate([args for _p, args in where] + cases[name]):
             got = wrapper_of(mods, name)(*args)
             want = plain_of(mods, name)(*args)
             shapes_ok = all(g.shape == w.shape and g.dtype == w.dtype
@@ -310,8 +651,8 @@ def parity(mods, captured, device):
                 fail(f"{name}: kernel differs from its plain version on case {i} (err {err})")
             if i == 0:
                 errors[name] = err
-        print(f"parity: {name} exact on the main path's input and "
-              f"{len(cases[name])} edge cases", flush=True)
+        inputs = ", ".join(f"the {p}'s largest input" for p, _a in where)
+        print(f"parity: {name} exact on {inputs} and {len(cases[name])} edge cases", flush=True)
     return errors
 
 
@@ -399,15 +740,41 @@ def bounds(name, args) -> tuple[float, float]:
         csum, live, cap = args
         n_live = min(cap, int(live))
         return nb(csum) + 4 + 4 * cap, n_live * 4 * csum.shape[0].bit_length() + cap
+    if name == "intersect":
+        a, b = args
+        q, n = a.shape[0], b.shape[0]
+        # a read, b read, mask (1 byte) and pos (4 bytes) written; a
+        # compare, a select and two index updates per search step
+        return 4 * q + 4 * n + q + 4 * q, q * (4 * n.bit_length() + 3)
     csum, kd, kt = args
     return (nb(csum) + nb(kd) + nb(kt) + 4 * kd.shape[0],
             kd.shape[0] * 4 * kd.shape[0].bit_length())
 
 
-def library_call(name, args):
-    """One PyTorch call computing the same function, where there is one."""
+def library_call(name, args, captured=None):
+    """One PyTorch call computing the same function, where there is one.
+    K4's is a stable argsort over the pass's composite (segment, digit)
+    key, which must give the kernel's permutation; K5's a searchsorted
+    plus the gather, compare and select that make it the same function."""
     import torch
 
+    if name == "radix_rank":
+        _perm, starts, _seg_last, digit = captured["radix_pass"]
+        key = starts.to(torch.int64) * 16 + digit.to(torch.int64)  # segments ascend
+        if not torch.equal(torch.argsort(key, stable=True).to(torch.int32),
+                           wrapper_of(kernel_modules(), name)(*args)):
+            fail("radix_rank: argsort over (segment, digit) is not the kernel's permutation")
+        return lambda: torch.argsort(key, stable=True)
+    if name == "intersect":
+        a, b = args
+        n = b.shape[0]
+
+        def searchsorted_membership():
+            pos = torch.searchsorted(b, a, out_int32=True)
+            hit = (pos < n) & (b[pos.clamp(max=n - 1)] == a)
+            return hit, torch.where(hit, pos, -1)
+
+        return searchsorted_membership
     if name == "csr_expand":
         starts, _base, _total, cap = args
         j = torch.arange(cap, dtype=torch.int32, device=starts.device)
@@ -419,7 +786,7 @@ def library_call(name, args):
     return None
 
 
-def timing(mods, captured, launches, errors):
+def timing(mods, captured, launches, errors, paths):
     """Device time of each kernel, its plain version and the library call
     on the main path's largest input, beside the bound; the CUDA-event time
     per call beside them. L2 is warm: the same inputs are reused across
@@ -428,14 +795,15 @@ def timing(mods, captured, launches, errors):
     for name, (_m, source, replaces) in KERNELS.items():
         args = captured[name]
         kernel, plain = wrapper_of(mods, name), plain_of(mods, name)
-        lib = library_call(name, args)
+        lib = library_call(name, args, captured)
         ms, timer = device_ms(lambda f=kernel, a=args: f(*a))
         plain_ms, _ = device_ms(lambda f=plain, a=args: f(*a), iters=5, warmup=1)
         nbytes, ops = bounds(name, args)
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / SCALAR_OPS_PER_S * 1e3
         records.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "parity": "exact", "max_abs_err": errors[name],
+            "launches": launches[name], "path": paths[name],
+            "parity": "exact", "max_abs_err": errors[name],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": device_ms(lib)[0] if lib is not None else None,
@@ -506,20 +874,38 @@ def main(argv=None) -> int:
                 print(f"build: {name}: {line.strip()}")
 
     mods = kernel_modules()
-    for m in mods.values():
-        m.launches = 0
-    workloads = main_path(device, args.seed, sf=10, star_n=6_000_000, star_dom=300_000,
-                          sync=torch.cuda.synchronize)
-    launches = {name: m.launches for name, m in mods.items()}
-    print("main path launches: " + json.dumps(launches), flush=True)
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"{name}: the main path never launched the kernel")
+
+    def drive(path, kernels, fn, *fargs, **fkw):
+        """Run one path with every launch count set to 0 just before it and
+        read just after; fail if a kernel of the path never launched."""
+        for m in mods.values():
+            m.launches = 0
+        out = fn(*fargs, **fkw)
+        counts = {name: m.launches for name, m in mods.items()}
+        print(f"{path} launches: " + json.dumps(counts), flush=True)
+        for name in kernels:
+            if counts[name] <= 0:
+                fail(f"{name}: the {path} never launched the kernel")
+        return out, counts
+
+    sync = torch.cuda.synchronize
+    workloads, launches = drive("main path", JOIN_KERNELS, main_path, device, args.seed,
+                                sf=10, star_n=6_000_000, star_dom=300_000, sync=sync)
+    paths = dict.fromkeys(JOIN_KERNELS, "main path")
+    # the streaming path: the standing SF 10 triangle and the stage replay
+    (q1_seen, replay_seen), _ = drive("streaming path", JOIN_KERNELS, lambda: (
+        streaming_triangle(device, args.seed, sf=10, sync=sync),
+        stage_replay(device, args.seed, sync=sync)))
+    k5_args, k5_counts = drive("intersect path", ("intersect",), intersect_path,
+                               workloads[1]["K1"], device)
+    launches["intersect"], paths["intersect"] = k5_counts["intersect"], "intersect path"
 
     captured = capture_main_path_inputs(workloads)
-    errors = parity(mods, captured, device)
-    cold_breakdown(workloads, torch.cuda.synchronize)
-    kernels = timing(mods, captured, launches, errors)
+    captured["intersect"] = k5_args
+    errors = parity(mods, captured, {"standing-q1 ingest": q1_seen,
+                                     "stage replay": replay_seen}, paths, device)
+    cold_breakdown(workloads, sync)
+    kernels = timing(mods, captured, launches, errors, paths)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,

@@ -1,9 +1,10 @@
 """State carried into the port from plain arrays and plain fields.
 
 These helpers let a caller hand the port state that was made elsewhere —
-host columns, the arrays of an already-built trie, a capacity plan — so
-that the port's executor can run on exactly the same trie and the same
-buffer sizes as another implementation of the system. They read only
+host columns, the arrays of an already-built trie, a trie-cache entry of a
+mutating relation, a capacity plan — so that the port's executor and its
+delta merges can run on exactly the same trie and the same buffer sizes
+as another implementation of the system. They read only
 numpy arrays and attributes (duck typing); nothing here imports anything
 but the port.
 """
@@ -12,8 +13,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core import relcache
 from repro_torch.core.capacity import CapacityPlan, ChainCapacityPlan
-from repro_torch.core.compiled import StaticTrie, _LevelOps
+from repro_torch.core.compiled import StaticTrie, TrieCache, _LevelOps
 from repro_torch.core.optimizer import NodeEstimate
 from repro_torch.kernels.ops import Table
 from repro_torch.relational.relation import Relation
@@ -69,6 +71,27 @@ def trie_from_arrays(lops, arrays, *, budget: int = 32, empty: bool = False,
         None if tb is None else Table(*(_tensor(a, device) for a in tb)) for tb in tables
     ]
     return t
+
+
+def trie_cache_entry_from_arrays(rel, lops, arrays, *, n_real: int, version: int,
+                                 budget: int = 32, device="cpu") -> StaticTrie:
+    """Install the trie-cache entry of a mutating relation from given
+    arrays: the padded, weighted trie (fields as for trie_from_arrays)
+    materialized at mutation `version`, whose first `n_real` rows are real
+    (live or tombstoned) and the rest PAD_KEY pads. `rel` must carry a
+    relcache mutation state at least at `version`; the next
+    TRIE_CACHE.get of `rel` under this layout then replays the deltas
+    after `version` onto this trie, exactly as onto one it built itself.
+    Returns the installed trie."""
+    trie = trie_from_arrays(lops, arrays, budget=budget, device=device)
+    key = TrieCache.entry_key(trie.lops, device, budget)
+    relcache.REGISTRY.namespace(rel, "tries")[key] = {
+        "trie": trie,
+        "cols": dict(trie.cols),
+        "version": int(version),
+        "n_real": int(n_real),
+    }
+    return trie
 
 
 def _stage_plan(obj) -> CapacityPlan:

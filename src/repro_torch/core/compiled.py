@@ -27,6 +27,23 @@ parts with an explicit contract between them:
   sequence prefix-compatible with a cached one reuses the cached sort
   order. Weighted (stage-output) tries are never cached.
 
+* The cache has a DELTA path for relations mutated through
+  core/relcache.py's append/delete API, in place of rebuild-on-any-change.
+  A mutating relation's trie is padded to a power-of-two capacity bucket
+  (_bucket), pad rows carrying PAD_KEY keys and multiplicity 0 so they
+  sort to the tail and weigh nothing. An append sorts ONLY the delta
+  (segmented radix sort, the delta's own key width) and splices the
+  sorted run into the cached level buffers with a rank-merge
+  (_merge_append): lex_searchsorted ranks each delta row against the old
+  sorted order, position arithmetic scatters both runs into the new
+  order, and the trie is rebuilt through the presorted constructor bypass,
+  with zero sort passes over old rows. A delete tombstones rows
+  (_retire_rows zeroes their weights and refreshes group weights); when
+  live/total drops below relcache.COMPACT_RATIO, relcache compacts and
+  the next access pays one full rebuild. Counters (delta_merges,
+  tombstone_refreshes) make the contract testable: appends move
+  delta_merges while builds stands still.
+
 Bushy plans run as one chain (Sec 2.2): make_chain_executor strings every
 stage's executor together; a non-root stage runs with agg=None, its
 output columns stay on the device as a padded buffer (invalid lanes
@@ -64,6 +81,7 @@ import torch
 from repro_torch.core import relcache
 from repro_torch.core.plan import FreeJoinPlan
 from repro_torch.kernels import ops
+from repro_torch.kernels.radix_sort import lex_searchsorted
 
 # Key stamped on the pad (invalid) lanes of a materialized stage buffer.
 # Real join keys are dictionary-encoded int32 >= 0 and never reach int32
@@ -362,6 +380,105 @@ def build_trie(
     )
 
 
+def _bucket(n: int, block: int = 1024) -> int:
+    """Physical capacity for a mutating relation's padded trie: the next
+    power of two >= n (min `block`). Appends within a bucket keep every
+    tensor shape fixed; shapes change only when the bucket grows."""
+    return max(block, 1 << max(0, n - 1).bit_length())
+
+
+def _merge_append(
+    old_cols: dict[str, torch.Tensor],
+    old_mult: torch.Tensor | None,
+    old_sorted: dict[str, torch.Tensor] | None,
+    old_order: torch.Tensor | None,
+    n_real: int,
+    delta_cols: dict[str, torch.Tensor],
+    *,
+    lops: _LevelOps,
+    budget: int,
+    cap: int,
+    delta_bits: tuple[int, ...],
+) -> StaticTrie:
+    """Splice a sorted delta run into a cached padded trie: the delta
+    build. Sorts ONLY the delta (segmented radix sort over the delta's own
+    key widths), binary-searches each delta tuple's slot in the cached
+    sorted run (radix_sort.lex_searchsorted), and derives the merged
+    permutation arithmetically; the constructor's presorted bypass then
+    rebuilds the group structure with zero sorting passes.
+
+    `n_real` (the live+tombstone prefix length) is a host int: every size
+    here is known on the host, so nothing is read back. Pad rows (keys
+    PAD_KEY, mult 0) sort after all real rows, so they stay a contiguous
+    tail that the merge shifts with elementwise ops; pads pushed past the
+    (possibly grown) capacity `cap` are written to one spare slot that is
+    cut off."""
+    flat = [v for lv in lops.levels for v in lv]
+    some = next(iter(old_cols.values()))
+    device = some.device
+    c_old = some.shape[0]
+    m = next(iter(delta_cols.values())).shape[0]
+    n_new = n_real + m  # cap >= n_new by construction (_bucket)
+    idx = torch.arange(cap, dtype=_I32, device=device)
+
+    def extend(a, fill):
+        out = torch.full((cap,), fill, dtype=_I32, device=device)
+        out[:c_old] = a
+        return out
+
+    new_cols = {}
+    for v in old_cols:
+        col = extend(old_cols[v], PAD_KEY)
+        col[n_real:n_new] = delta_cols[v]
+        new_cols[v] = col
+    om = old_mult if old_mult is not None else torch.ones(c_old, dtype=_I32, device=device)
+    new_mult = extend(torch.where(idx[:c_old] < n_real, om, 0), 0)
+    new_mult[n_real:n_new] = 1
+    if len(lops.levels) == 1 and not lops.probed[0]:
+        # trivial (cover-only) trie: no order to maintain, just new columns
+        return build_trie(new_cols, lops, budget=budget, mult=new_mult)
+    # sort the delta among itself, then locate each tuple's splice slot
+    delta_order = ops.segmented_sort([delta_cols[v] for v in flat], tuple(delta_bits))
+    ds = {v: delta_cols[v][delta_order] for v in flat}
+    # rank in the cached sorted run; real keys < PAD_KEY, so ranks never
+    # land inside the pad tail and the merged real prefix is exactly n_new
+    rank = lex_searchsorted([old_sorted[v] for v in flat], [ds[v] for v in flat])
+    pos_delta = rank + torch.arange(m, dtype=_I32, device=device)
+    k = idx[:c_old]
+    pos_old = k + torch.searchsorted(rank, k, right=True, out_int32=True)
+    # delta rows take indices [n_real, n_new); old pads shift up by m
+    adj = old_order + torch.where(old_order >= n_real, m, 0).to(_I32)
+    new_order = torch.zeros(cap + 1, dtype=_I32, device=device)
+    new_order[torch.where(pos_old < cap, pos_old, cap)] = adj
+    new_order[pos_delta] = n_real + delta_order
+    # pads are interchangeable: identity-map the tail so `new_order` stays a
+    # permutation however many pads fell on the spare slot
+    new_order = torch.where(idx >= n_new, idx, new_order[:cap])
+    return build_trie(
+        new_cols,
+        lops,
+        budget=budget,
+        mult=new_mult,
+        init_order=new_order,
+        presorted=len(flat),
+    )
+
+
+def _retire_rows(mult: torch.Tensor, order, groups, rows: torch.Tensor):
+    """Tombstone catch-up on a cached trie: zero the rows' multiplicity and
+    refresh the per-level weight aggregates. The sort order, the group
+    structure and the hash tables are untouched: dead rows keep their
+    slots and simply weigh nothing. Returns new tensors and modifies none:
+    views of the trie already handed out keep the weights they were
+    served with."""
+    mult = mult.clone()
+    mult[rows] = 0
+    total = mult.sum(dtype=_I32)
+    sm = mult[order] if order is not None else mult
+    weights = [_segment_sum(sm, gd1, mult.shape[0]) for gd1 in groups]
+    return mult, total, weights
+
+
 def device_columns(rel, device) -> dict[str, torch.Tensor]:
     """Registry-cached int32 upload of a relation's columns to `device`:
     each host column is transferred once per (relation object, column
@@ -396,8 +513,29 @@ class TrieCache:
     prefix with a cached one seeds the sort with the cached order and skips
     the shared passes.
 
-    Counters (builds/table_builds/hits/order_shares) are the observable
-    contract the tests lock: a repeated identical call must be all hits.
+    MUTATING relations (those with a relcache.MutationState, i.e. touched
+    by relcache.append/delete) take the versioned DELTA path instead of
+    identity revalidation. Their entries carry the mutation version they
+    materialized at plus `n_real` (live+tombstone row prefix), and the trie
+    itself is padded to a power-of-two bucket: pad rows carry PAD_KEY keys
+    and multiplicity 0, sorted to a contiguous tail. Serving one then means:
+
+    * version match: a pure cache hit, zero device work;
+    * version behind: replay `deltas_since`. An append sorts ONLY the
+      delta and splices it into the cached sorted run (_merge_append, zero
+      full re-sorts; `delta_merges` counts these); a delete refreshes the
+      weight aggregates (`tombstone_refreshes`);
+    * log pruned / compaction crossed / negative delta keys: a full padded
+      weighted rebuild (counted in `builds`, like any cold build).
+
+    A trie built BEFORE the relation's first mutation is adopted as the
+    version-0 merge base when it is over the state's version-0 device
+    columns on the same device, so warm-then-stream never pays a rebuild.
+
+    Counters (builds/table_builds/hits/order_shares/delta_merges/
+    tombstone_refreshes) are the observable contract the tests lock: a
+    repeated identical call must be all hits, and an append followed by a
+    query must move delta_merges, never builds.
     """
 
     def __init__(self, registry: relcache.RelationRegistry | None = None):
@@ -406,6 +544,16 @@ class TrieCache:
         self.table_builds = 0  # lazy per-level table additions
         self.hits = 0  # fully served from cache: zero device work
         self.order_shares = 0  # builds that reused a cached sort order
+        self.delta_merges = 0  # appends absorbed by sorted-run splicing
+        self.tombstone_refreshes = 0  # deletes absorbed by weight refresh
+
+    @staticmethod
+    def entry_key(lops: _LevelOps, device, budget: int) -> tuple:
+        """The registry key of a relation's cached trie for one layout.
+        Trivial-ness is part of the identity: a cover-only (table-less,
+        order-less) trie must never be served to a schedule that probes."""
+        trivial = len(lops.levels) == 1 and not lops.probed[0]
+        return (lops.levels, str(torch.device(device)), budget, trivial)
 
     def _key_bits(self, rel, flat_vars) -> tuple[int, ...] | None:
         """Static per-var key widths for the radix sort, from the host
@@ -441,23 +589,27 @@ class TrieCache:
         ns = self._reg.namespace(rel, "tries")
         flat = tuple(v for lv in lops.levels for v in lv)
         used = {v: dev_cols[v] for v in flat}
-        device = str(next(iter(used.values())).device)
-        trivial = len(lops.levels) == 1 and not lops.probed[0]
-        # trivial-ness is part of the identity: a cover-only (table-less,
-        # order-less) trie must never be served to a schedule that probes
-        key = (lops.levels, device, budget, trivial)
+        device = next(iter(used.values())).device
+        key = self.entry_key(lops, device, budget)
+        st = relcache.mutation_state(rel)
+        if st is not None:
+            return self._get_mutating(rel, st, dev_cols, lops, flat, key, budget)
         entry = ns.get(key)
-        if entry is not None and all(entry["cols"][v] is used[v] for v in flat):
-            return self._serve(entry["trie"], lops, budget)
+        if (
+            entry is not None
+            and entry.get("version") is None
+            and all(entry["cols"][v] is used[v] for v in flat)
+        ):
+            return self._serve(entry["trie"], lops, budget, count_hit=True)
         # miss: build, seeding the sort with any prefix-compatible cached
         # order over the same (identical) columns
         key_bits = self._key_bits(rel, flat)
         init_order, presorted = None, 0
-        if key_bits is not None and not trivial:
+        if key_bits is not None and not key[3]:
             for (levels2, device2, _b2, _t2), e2 in ns.items():
                 donor = e2["trie"]
-                if donor.order is None or device2 != device:
-                    continue
+                if donor.order is None or device2 != key[1] or e2.get("version") is not None:
+                    continue  # padded mutating orders never seed plain builds
                 flat2 = tuple(v for lv in levels2 for v in lv)
                 share = 0
                 while (
@@ -478,7 +630,7 @@ class TrieCache:
             self.order_shares += 1
         return trie.table_view(lops.probed)
 
-    def _serve(self, trie: StaticTrie, lops, budget):
+    def _serve(self, trie: StaticTrie, lops, budget, *, count_hit: bool):
         """Fill any probe tables the request needs that the cached build
         skipped (the lazy-COLT path), then hand out a probed view."""
         missing = [
@@ -489,9 +641,143 @@ class TrieCache:
         for d in missing:
             trie.tables[d] = trie.build_level_table(d, budget)
             self.table_builds += 1
-        if not missing:
+        if count_hit and not missing:
             self.hits += 1
         return trie.table_view(lops.probed)
+
+    def _get_mutating(self, rel, st, dev_cols, lops, flat, key, budget):
+        """Serve a mutating relation: version-matched hit, delta catch-up
+        (merge appends, retire deletes), or full padded rebuild."""
+        ns = self._reg.namespace(rel, "tries")
+        device = key[1]
+        entry = ns.get(key)
+        if entry is not None and entry.get("version") is None:
+            # built before the first mutation: adopt as the version-0 merge
+            # base iff it is over the state's version-0 device columns on
+            # this device (and no compaction/pruning has moved the base past
+            # version 0)
+            trie = entry["trie"]
+            if (
+                st.base_version == 0
+                and not trie.empty
+                and all(entry["cols"].get(v) is st.dev0.get((device, v)) for v in flat)
+            ):
+                entry["version"] = 0
+                entry["n_real"] = trie.n
+            else:
+                entry = None
+        deltas = None
+        if entry is not None:
+            deltas = st.deltas_since(entry["version"])
+            if deltas is None or entry["trie"].empty:
+                entry = None  # pruned log or sentinel empty trie: rebuild
+        if entry is not None:
+            trie = entry["trie"]
+            if not deltas:
+                return self._serve(trie, lops, budget, count_hit=True)
+            for _ver, kind, payload in deltas:
+                if kind == "append":
+                    merged = self._merge_append(trie, entry["n_real"], payload, lops, budget)
+                    if merged is None:  # negative delta keys: comparison sort only
+                        entry = None
+                        break
+                    trie = merged
+                    entry["n_real"] += len(next(iter(payload.values())))
+                    self.delta_merges += 1
+                else:
+                    self._retire(trie, payload)
+                    self.tombstone_refreshes += 1
+            if entry is not None:
+                entry["trie"] = trie
+                entry["cols"] = dict(trie.cols)
+                entry["version"] = st.version
+                return self._serve(trie, lops, budget, count_hit=False)
+        # full rebuild, padded to the bucket and weighted by the liveness
+        # mask, so later appends merge and later deletes retire in place
+        cap = _bucket(st.total)
+        pad = cap - st.total
+        used = {}
+        for v in flat:
+            dc = dev_cols[v]
+            used[v] = (
+                torch.cat([dc, torch.full((pad,), PAD_KEY, dtype=_I32, device=dc.device)])
+                if pad else dc
+            )
+        dev = next(iter(used.values())).device
+        if st.mult is not None:
+            hm = np.concatenate([st.mult, np.zeros(pad, np.int32)])
+            mult = torch.as_tensor(hm).to(dev)
+        else:
+            mult = (torch.arange(cap, dtype=_I32, device=dev) < st.total).to(_I32)
+        # pads carry PAD_KEY keys and mult 0: the comparison sort routes
+        # them to the tail, where every later merge expects them
+        trie = build_trie(used, lops, budget=budget, mult=mult)
+        ns[key] = {
+            "trie": trie,
+            "cols": dict(trie.cols),
+            "version": st.version,
+            "n_real": st.total,
+        }
+        self.builds += 1
+        return self._serve(trie, lops, budget, count_hit=False)
+
+    def _merge_append(self, trie, n_real, payload, lops, budget):
+        """Host wrapper for one append log entry: delta key widths, bucket
+        growth, the delta's upload, and the probed-union layout (a merge
+        rebuilds every table the cached trie had accumulated, so other
+        schedules stay warm). Returns None when the delta has negative
+        keys, which the radix delta sort cannot order."""
+        flat = tuple(v for lv in lops.levels for v in lv)
+        m = len(next(iter(payload.values())))
+        bits = []
+        for v in flat:
+            col = payload[v]
+            if int(col.min()) < 0:
+                return None
+            bits.append(max(1, int(col.max()).bit_length()))
+        device = next(iter(trie.cols.values())).device
+        delta_dev = {
+            v: torch.as_tensor(np.ascontiguousarray(payload[v], dtype=np.int32)).to(device)
+            for v in flat
+        }
+        if trie.trivial:
+            mlops = lops
+        else:
+            mlops = replace(
+                lops,
+                probed=tuple(
+                    (t is not None) or p for t, p in zip(trie.tables, lops.probed)
+                ),
+            )
+        return _merge_append(
+            {v: trie.cols[v] for v in flat},
+            trie.mult_col,
+            trie.sorted_cols,
+            trie.order,
+            n_real,
+            delta_dev,
+            lops=mlops,
+            budget=budget,
+            cap=_bucket(n_real + m),
+            delta_bits=tuple(bits),
+        )
+
+    def _retire(self, trie, rows):
+        """Apply one delete log entry to the cached trie: rows are host
+        positions, which by the padding invariant are trie row indices
+        verbatim. Order, groups and tables are untouched."""
+        device = next(iter(trie.cols.values())).device
+        mult = trie.mult_col
+        if mult is None:
+            mult = torch.ones(trie.n, dtype=_I32, device=device)
+        groups = [] if trie.trivial else trie.g[1:]
+        mult, total, weights = _retire_rows(
+            mult, trie.order, groups, torch.as_tensor(rows).to(device)
+        )
+        trie.mult_col = mult
+        trie.total_mult = total
+        if not trie.trivial:
+            trie.row_weight = weights
 
 
 TRIE_CACHE = TrieCache()

@@ -23,7 +23,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-KERNELS = ("hash_probe", "csr_expand", "compact", "radix_rank")
+KERNELS = ("hash_probe", "csr_expand", "compact", "radix_rank", "intersect")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -36,6 +36,7 @@ _SIGNATURES = {
     "csr_expand": ("csr_expand_launch", (_P, _P, _P, _P, _P, _I, _I, _P)),
     "compact": ("compact_launch", (_P, _P, _P, _I, _I, _P)),
     "radix_rank": ("radix_rank_launch", (_P, _P, _P, _P, _I, _P)),
+    "intersect": ("intersect_launch", (_P, _P, _P, _P, _I, _I, _P)),
 }
 
 _lock = threading.Lock()

@@ -5,8 +5,9 @@ Every op runs on the device of its input tensors. The hash-table *build*
 is sort-based and stays in plain tensor code: after sorting by home slot,
 slot assignment is `slot_i = i + cummax(h_i - i)` (an associative scan),
 so a sort and a scan are all it needs. The probe, the expansion, the
-compaction and the radix rank are the kernels (K1-K4); their prefix sums
-are computed here, outside the kernels.
+compaction, the radix rank and the sorted-set intersection are the
+kernels (K1-K5); their prefix sums are computed here, outside the
+kernels.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import torch
 from repro_torch.kernels.compact import compact
 from repro_torch.kernels.csr_expand import csr_expand
 from repro_torch.kernels.hash_probe import PROBE_BUDGET, hash_probe, mix32
+from repro_torch.kernels.intersect import intersect
 from repro_torch.kernels.radix_sort import segmented_sort  # noqa: F401  (re-exported)
 
 
@@ -65,6 +67,18 @@ def probe(table: Table, queries: torch.Tensor) -> torch.Tensor:
         return torch.full((queries.shape[0],), -1, dtype=torch.int32, device=queries.device)
     budget = table.slots.shape[0] - _next_pow2(table.keys.shape[0])
     return hash_probe(table.slots, table.keys, queries.contiguous(), budget)
+
+
+def intersect_sorted(a: torch.Tensor, b: torch.Tensor):
+    """a: (Q,) int32 queries; b: (N,) int32 sorted and duplicate-free.
+    Returns (mask, pos): (Q,) bool membership of each a[i] in b, and
+    (Q,) int32 its position in b or -1."""
+    if b.shape[0] == 0 or a.shape[0] == 0:
+        return (
+            torch.zeros(a.shape[0], dtype=torch.bool, device=a.device),
+            torch.full((a.shape[0],), -1, dtype=torch.int32, device=a.device),
+        )
+    return intersect(a.to(torch.int32).contiguous(), b.to(torch.int32).contiguous())
 
 
 def _expand(starts, base, total, capacity):

@@ -155,3 +155,47 @@ def segmented_sort(
                 perm = _radix_pass(perm, starts, seg_last, digit)
         seg = _refine_segments(seg, col[perm])
     return perm
+
+
+def lex_searchsorted(
+    sorted_cols: list[torch.Tensor],
+    query_cols: list[torch.Tensor],
+) -> torch.Tensor:
+    """Per-query insertion rank (side="left") of each query tuple into the
+    lexicographically sorted rows of `sorted_cols` (cols[0] major).
+
+    The merge half of the delta trie build: the delta's rows are sorted
+    among themselves by `segmented_sort`, then this locates each one's slot
+    in the cached sorted run — the splice positions of a sorted-run merge
+    without a full re-sort. A fixed-step binary search written as tensor
+    operations (no kernel: the reference computes it outside Pallas too):
+    ceil(log2(N+1)) gather rounds, each lane frozen once its bracket
+    closes. Lexicographic "row < query" is folded from the least
+    significant column backward: a < b at column d iff
+    (a_d < b_d) | (a_d == b_d & the rest of a < the rest of b)."""
+    if not sorted_cols or len(sorted_cols) != len(query_cols):
+        raise ValueError("lex_searchsorted: one query column per sorted column")
+    n = sorted_cols[0].shape[0]
+    q = query_cols[0].shape[0]
+    device = query_cols[0].device
+    if n == 0:
+        return torch.zeros(q, dtype=torch.int32, device=device)
+    sorted_cols = [c.to(torch.int32) for c in sorted_cols]
+    query_cols = [c.to(torch.int32) for c in query_cols]
+
+    def row_lt_query(pos):  # (Q,) bool: sorted row pos[j] < query j ?
+        lt = torch.zeros(pos.shape, dtype=torch.bool, device=device)
+        for sc, qc in zip(reversed(sorted_cols), reversed(query_cols)):
+            a = sc[pos]
+            lt = (a < qc) | ((a == qc) & lt)
+        return lt
+
+    lo = torch.zeros(q, dtype=torch.int32, device=device)
+    hi = torch.full((q,), n, dtype=torch.int32, device=device)
+    for _ in range(n.bit_length()):  # ceil(log2(n + 1)) halvings
+        mid = (lo + hi) // 2
+        lt = row_lt_query(mid.clamp(max=n - 1))
+        open_ = lo < hi
+        lo = torch.where(open_ & lt, mid + 1, lo)
+        hi = torch.where(open_ & ~lt, mid, hi)
+    return lo

@@ -19,6 +19,15 @@ def hash_probe_ref(table_keys: torch.Tensor, query_keys: torch.Tensor) -> torch.
     return torch.where(eq.any(dim=1), idx, -1)
 
 
+def intersect_ref(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """For each a[i], whether it occurs in b and its first position there
+    (-1 if absent), by brute-force comparison of every pair."""
+    eq = a[:, None] == b[None, :]  # (Q, N)
+    hit = eq.any(dim=1)
+    pos = eq.to(torch.int32).argmax(dim=1).to(torch.int32)
+    return hit, torch.where(hit, pos, -1)
+
+
 def compact_ref(valid: torch.Tensor, out_capacity: int):
     """Dense packing of the True lanes of `valid` into `out_capacity`
     output slots. Returns (src, live): src[j] = lane of the (j+1)-th valid

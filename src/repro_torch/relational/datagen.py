@@ -10,9 +10,13 @@
   covers only a `sel` fraction of the y domain: the acyclic case, where
   the S probe kills most of the frontier and the planner schedules a
   compaction before the T probe.
+* knows_inserts draws new `knows` edges from the same generator with
+  another seed over the table's own hubs: the insert stream a standing
+  query over `knows` ingests.
 
-Both draw their numbers in the same order as the reference package's
-benchmark generators, so the same seed gives the same tables.
+lsqb_knows and lowsel_star draw their numbers in the same order as the
+reference package's benchmark generators, so the same seed gives the same
+tables.
 """
 from __future__ import annotations
 
@@ -22,22 +26,45 @@ from repro_torch.relational.relation import Relation
 from repro_torch.relational.schema import Atom, Query
 
 
-def _zipf(rng, n, domain, a=1.3):
-    """Zipf-skewed foreign keys with an independent permutation of the
-    domain per call: heavy hitters, but different ones per call."""
-    z = rng.zipf(a, n)
-    perm = rng.permutation(domain)
-    return perm[(z - 1) % domain].astype(np.int64)
+def _n_person(sf: float) -> int:
+    return int(30_000 * sf) + 100
+
+
+def _n_knows(sf: float) -> int:
+    return int(180_000 * sf) + 200
+
+
+def _knows_edges(rng, n: int, n_person: int, perms=None):
+    """`n` edges with Zipf(a=1.4) endpoints over `n_person` persons, drawn
+    in lsqb_knows' order: source ranks, the permutation of the domain they
+    map through, destination ranks, theirs. The permutations decide who the
+    hubs are; given `perms` (another draw's), the ranks map through those
+    and no permutation is drawn. Returns (src, dst, perms)."""
+    ends, used = [], []
+    for i in range(2):
+        z = rng.zipf(1.4, n)
+        perm = rng.permutation(n_person) if perms is None else perms[i]
+        ends.append(perm[(z - 1) % n_person].astype(np.int64))
+        used.append(perm)
+    return ends[0], ends[1], used
 
 
 def lsqb_knows(sf: float = 0.1, seed: int = 1) -> Relation:
     """The LSQB `knows` table (a -> b) at scale factor `sf`."""
-    rng = np.random.default_rng(seed)
-    n_person = int(30_000 * sf) + 100
-    n_knows = int(180_000 * sf) + 200
-    src = _zipf(rng, n_knows, n_person, a=1.4)
-    dst = _zipf(rng, n_knows, n_person, a=1.4)
+    src, dst, _ = _knows_edges(np.random.default_rng(seed), _n_knows(sf), _n_person(sf))
     return Relation("knows", {"a": src, "b": dst})
+
+
+def knows_inserts(sf: float, n: int, seed: int, table_seed: int) -> dict[str, np.ndarray]:
+    """`n` new `knows` edges (a -> b) for lsqb_knows(sf, table_seed): LDBC
+    SNB Interactive's "add friendship" insert. The Zipf ranks come from
+    `seed`, the person permutations from the table's own draw, so new edges
+    land on the table's hubs and close triangles with its edges. Returns
+    int32 columns for relcache.append."""
+    n_person = _n_person(sf)
+    _, _, perms = _knows_edges(np.random.default_rng(table_seed), _n_knows(sf), n_person)
+    src, dst, _ = _knows_edges(np.random.default_rng(seed), n, n_person, perms)
+    return {"a": src.astype(np.int32), "b": dst.astype(np.int32)}
 
 
 def lsqb_q1(knows: Relation) -> tuple[Query, dict[str, Relation]]:

@@ -12,8 +12,9 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import ExecOptions, compiled_free_join
-from repro_torch.kernels import compact, csr_expand, hash_probe, ops, radix_sort
+from repro_torch.core import TRIE_CACHE, ExecOptions, compiled_free_join, relcache
+from repro_torch.core.compiled import _LevelOps, device_columns
+from repro_torch.kernels import compact, csr_expand, hash_probe, intersect, ops, radix_sort
 from repro_torch.relational.datagen import lowsel_star
 from repro_torch.relational.relation import Relation
 from repro_torch.relational.schema import triangle_query
@@ -105,3 +106,55 @@ def test_slice_on_card_matches_cpu(cuda, agg, rng):
             for v in query.head:
                 np.testing.assert_array_equal(got[0][v], want[0][v])
             np.testing.assert_array_equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("m,n", [(1, 1), (1025, 500), (300_001, 300_100)])
+def test_intersect_kernel(cuda, m, n, rng):
+    b = np.unique(rng.integers(0, 1 << 22, 2 * n))[:n]
+    a = np.concatenate([b[rng.integers(0, n, m // 2)],
+                        rng.integers(-5, (1 << 22) + 5, m - m // 2)])
+    assert_kernel_matches_plain(intersect, "intersect", on(cuda, a), on(cuda, b))
+    got = ops.intersect_sorted(on(cuda, a), on(cuda, b))
+    want = ops.intersect_sorted(on("cpu", a), on("cpu", b))
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_lex_searchsorted_on_card(cuda, rng):
+    rows = rng.integers(0, 50, (20_000, 2))
+    rows = rows[np.lexsort(rows.T[::-1])]
+    qs = rng.integers(-1, 52, (7_000, 2))
+    got = radix_sort.lex_searchsorted([on(cuda, rows[:, 0]), on(cuda, rows[:, 1])],
+                                      [on(cuda, qs[:, 0]), on(cuda, qs[:, 1])])
+    want = radix_sort.lex_searchsorted([on("cpu", rows[:, 0]), on("cpu", rows[:, 1])],
+                                       [on("cpu", qs[:, 0]), on("cpu", qs[:, 1])])
+    assert torch.equal(got.cpu(), want)
+
+
+def test_delta_merge_and_retire_on_card_match_cpu(cuda, rng):
+    """One append (a delta merge) and one delete (a tombstone refresh) on
+    the card give the same trie arrays as on the CPU."""
+    lops = _LevelOps((("x",), ("y",)), (True, True))
+    cols = {"x": rng.integers(0, 300, 50_000), "y": rng.integers(0, 900, 50_000)}
+    rels = {d: Relation("R", {v: c.copy() for v, c in cols.items()}) for d in ("cuda", "cpu")}
+    tries = {}
+    for dev, rel in rels.items():
+        TRIE_CACHE.get(rel, device_columns(rel, dev), lops)
+    d1 = {v: rng.integers(0, 1000, 4_096).astype(np.int32) for v in cols}
+    gone = rng.choice(50_000, 3_000, replace=False)
+    for mutate, counter in ((lambda r: relcache.append(r, d1), "delta_merges"),
+                            (lambda r: relcache.delete(r, gone), "tombstone_refreshes")):
+        for dev, rel in rels.items():
+            mutate(rel)
+            before = (TRIE_CACHE.builds, getattr(TRIE_CACHE, counter))
+            tries[dev] = TRIE_CACHE.get(rel, device_columns(rel, dev), lops)
+            assert (TRIE_CACHE.builds, getattr(TRIE_CACHE, counter)) == (before[0], before[1] + 1)
+        torch.cuda.synchronize()
+        gpu, cpu = tries["cuda"], tries["cpu"]
+        for name in ("order", "mult_col", "total_mult"):
+            assert torch.equal(getattr(gpu, name).cpu(), getattr(cpu, name)), name
+        for name in ("g", "kpos", "row_count", "row_weight"):
+            for g, c in zip(getattr(gpu, name), getattr(cpu, name)):
+                assert torch.equal(g.cpu(), c), name
+        for g, c in zip(gpu.tables, cpu.tables):
+            assert torch.equal(g.slots.cpu(), c.slots)

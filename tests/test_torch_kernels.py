@@ -10,12 +10,14 @@ import pytest
 import torch
 
 from repro.kernels import ops as jops
+from repro.kernels import radix_sort as jradix_sort
+from repro.kernels import ref as jref
 from repro.kernels.compact import compact_pallas
 from repro.kernels.csr_expand import csr_expand_pallas
 from repro.kernels.hash_probe import QBLK, hash_probe_pallas
 from repro.kernels.hash_probe import mix32 as jmix32
 from repro.kernels.radix_sort import radix_rank_pallas
-from repro_torch.kernels import compact, csr_expand, hash_probe, ops, radix_sort, ref
+from repro_torch.kernels import compact, csr_expand, hash_probe, intersect, ops, radix_sort, ref
 
 BLK = 1024  # the Pallas kernels' output block (OBLK/CBLK)
 
@@ -189,13 +191,83 @@ def test_radix_rank_vs_pallas(n, rng):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+# ---- K5: sorted-set intersection ---------------------------------------------
+
+
+def intersect_case(rng, m, n):
+    """The reference kernel test's inputs: b sorted unique, a half hits
+    (with repeats) and half misses above b's range, unsorted."""
+    b = np.unique(rng.integers(0, 10**5, n).astype(np.int32))
+    a = np.concatenate([
+        b[rng.integers(0, len(b), m // 2 + 1)] if len(b) else np.zeros(0, np.int32),
+        rng.integers(10**5, 2 * 10**5, m // 2).astype(np.int32),
+    ])[:m]
+    return a, b
+
+
+@pytest.mark.parametrize("m,n", [(1, 1), (100, 37), (1000, 999), (1025, 500), (0, 50), (40, 0)])
+def test_intersect_vs_pallas(m, n, rng):
+    """K5's plain version (through ops.intersect_sorted) against the Pallas
+    kernel in interpret mode and both brute-force oracles; Q = 1025 is not
+    a multiple of the Pallas block, and m = 0 / n = 0 take the empty
+    shortcut of ops.intersect_sorted."""
+    a, b = intersect_case(rng, m, n)
+    wm, wp = jops.intersect_sorted(jnp.asarray(a), jnp.asarray(b), impl="pallas_interpret")
+    gm, gp = ops.intersect_sorted(t32(a), t32(b))
+    assert gm.dtype == torch.bool and gp.dtype == torch.int32
+    np.testing.assert_array_equal(gm.numpy(), np.asarray(wm))
+    np.testing.assert_array_equal(gp.numpy(), np.asarray(wp))
+    if m and n:
+        jm, jp = jref.intersect_ref(jnp.asarray(a), jnp.asarray(b))
+        rm, rp = ref.intersect_ref(t32(a), t32(b))
+        for got, want in ((gm, jm), (gp, jp), (rm, jm), (rp, jp)):
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_intersect_edge_keys():
+    """Keys below b[0] and above b[-1], all hits, all misses, and N = 1."""
+    b = np.int32([3, 8, 20, 41, 77])
+    for a in ([-5, 0, 2, 3, 77, 78, 2**31 - 1, -(2**31)], [3, 8, 20, 41, 77, 77, 3],
+              [1, 4, 9, 21, 100]):
+        a = np.int32(a)
+        wm, wp = jops.intersect_sorted(jnp.asarray(a), jnp.asarray(b), impl="pallas_interpret")
+        gm, gp = intersect.intersect_plain(t32(a), t32(b))
+        np.testing.assert_array_equal(gm.numpy(), np.asarray(wm))
+        np.testing.assert_array_equal(gp.numpy(), np.asarray(wp))
+    gm, gp = intersect.intersect(t32([6, 7, 8]), t32([7]))
+    np.testing.assert_array_equal(gm.numpy(), [False, True, False])
+    np.testing.assert_array_equal(gp.numpy(), [-1, 0, -1])
+
+
+# ---- lex_searchsorted (the delta merge's rank) ------------------------------------
+
+
+@pytest.mark.parametrize("ncols,n,q,dom", [(1, 50, 40, 9), (2, 300, 128, 6), (3, 257, 99, 4),
+                                           (2, 1, 17, 3), (2, 0, 10, 5)])
+def test_lex_searchsorted_vs_reference(ncols, n, q, dom, rng):
+    """Sorted rows with heavy duplication (a small domain), queries inside
+    and outside it, and an empty sorted run (n = 0)."""
+    rows = rng.integers(0, dom, (n, ncols)).astype(np.int32)
+    rows = rows[np.lexsort(rows.T[::-1])] if n else rows
+    qs = rng.integers(-1, dom + 1, (q, ncols)).astype(np.int32)
+    want = jradix_sort.lex_searchsorted([jnp.asarray(rows[:, c]) for c in range(ncols)],
+                                        [jnp.asarray(qs[:, c]) for c in range(ncols)])
+    got = radix_sort.lex_searchsorted([t32(rows[:, c]) for c in range(ncols)],
+                                      [t32(qs[:, c]) for c in range(ncols)])
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    brute = [sum(tuple(r) < tuple(x) for r in rows.tolist()) for x in qs.tolist()]
+    np.testing.assert_array_equal(got.numpy(), brute)
+
+
 # ---- the wrappers' contract ----------------------------------------------------
 
 
 def test_wrappers_reject_bad_inputs_and_count_only_launches():
     csum = t32([1, 1, 2])
-    before = (hash_probe.launches, csr_expand.launches, compact.launches, radix_sort.launches)
+    before = (hash_probe.launches, csr_expand.launches, compact.launches, radix_sort.launches,
+              intersect.launches)
     compact.compact(csum, t32([2]), 4)  # a CPU tensor runs the plain version
+    intersect.intersect(t32([1, 2]), t32([2]))
     with pytest.raises(ValueError, match="int32"):
         compact.compact(csum.long(), t32([2]), 4)
     with pytest.raises(ValueError, match="contiguous"):
@@ -208,5 +280,10 @@ def test_wrappers_reject_bad_inputs_and_count_only_launches():
         hash_probe.hash_probe(t32(np.full(43, -1)), t32([[1]]), t32([[1]]), 32)
     with pytest.raises(ValueError, match="kd and kt"):
         radix_sort.radix_rank(t32(np.zeros((16, 3))), t32([0, 0]), t32([0, 0]))
-    after = (hash_probe.launches, csr_expand.launches, compact.launches, radix_sort.launches)
+    with pytest.raises(ValueError, match="N >= 1"):
+        intersect.intersect(t32([1]), t32([]))
+    with pytest.raises(ValueError, match="int32"):
+        intersect.intersect(t32([1]).long(), t32([1]))
+    after = (hash_probe.launches, csr_expand.launches, compact.launches, radix_sort.launches,
+             intersect.launches)
     assert after == before, "plain CPU runs are not kernel launches"
