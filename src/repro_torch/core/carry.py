@@ -35,7 +35,7 @@ def _tensors(seq, device):
 
 
 def trie_from_arrays(lops, arrays, *, budget: int = 32, empty: bool = False,
-                     device="cpu") -> StaticTrie:
+                     device="cuda") -> StaticTrie:
     """A StaticTrie over given arrays instead of a build.
 
     lops: anything with `.levels` and `.probed`; arrays: the trie's
@@ -74,7 +74,7 @@ def trie_from_arrays(lops, arrays, *, budget: int = 32, empty: bool = False,
 
 
 def trie_cache_entry_from_arrays(rel, lops, arrays, *, n_real: int, version: int,
-                                 budget: int = 32, device="cpu") -> StaticTrie:
+                                 budget: int = 32, device="cuda") -> StaticTrie:
     """Install the trie-cache entry of a mutating relation from given
     arrays: the padded, weighted trie (fields as for trie_from_arrays)
     materialized at mutation `version`, whose first `n_real` rows are real

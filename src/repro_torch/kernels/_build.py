@@ -3,11 +3,11 @@
 Every kernel lives in `csrc/<name>.cu` behind a plain C launcher (see
 csrc/common.cuh). At first use `launcher(name)` compiles that one source
 for Hopper (sm_90a) into `build/repro_torch_kernels/` at the repository
-root, named by a digest of the sources and flags so that an edited kernel
-is rebuilt, and loads it with ctypes. `build(names)` compiles several
-sources at once, one nvcc process each, and returns what ptxas reports
-about registers and spills. Nothing here falls back: a missing nvcc or a
-failed compile raises.
+root, named by a digest of the flags, the source and every header under
+csrc/, so that an edited kernel or header is rebuilt, and loads it with
+ctypes. `build(names)` compiles several sources at once, one nvcc process
+each, and returns what ptxas reports about registers and spills. Nothing
+here falls back: a missing nvcc or a failed compile raises.
 """
 from __future__ import annotations
 
@@ -56,8 +56,11 @@ def nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
+    """Where kernel `name`'s library goes, named by a digest of the flags,
+    its source and every header under csrc/ (any of which it may include)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in (CSRC / "common.cuh", CSRC / f"{name}.cu"):
+    for src in (*sorted(CSRC.glob("*.cuh")), CSRC / f"{name}.cu"):
+        h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

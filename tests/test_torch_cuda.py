@@ -56,10 +56,23 @@ def test_hash_probe_kernel(cuda, n, k, q, rng):
     assert_kernel_matches_plain(hash_probe, "hash_probe", table.slots, table.keys, dead, 32)
 
 
-@pytest.mark.parametrize("f,cap", [(1, 1029), (777, 1500), (100_000, 1 << 20)])
+# fan-outs a tiled merge gets wrong (the kernel merges 1,792 items a block)
+def shaped_counts(rng, shape):
+    counts = rng.integers(0, 7, 60_000)
+    if shape == "hub":  # one row over 100,000 slots
+        counts[31_337] = 100_000
+    else:  # "zero_run": 50,000 zero-count rows in a row
+        counts[5_000:55_000] = 0
+    return counts
+
+
+@pytest.mark.parametrize("f,cap", [(1, 1029), (777, 1500), (100_000, 1 << 20),
+                                   ("hub", 300_001), ("hub", 200_000), ("zero_run", 40_000),
+                                   (1, 3)])
 @pytest.mark.parametrize("total_zero", [False, True])
 def test_csr_expand_kernel(cuda, f, cap, total_zero, rng):
-    counts = rng.integers(0, 7, f)
+    counts = shaped_counts(rng, f) if isinstance(f, str) else rng.integers(0, 7, f)
+    f = len(counts)
     cum = np.cumsum(counts)
     total = 0 if total_zero else int(cum[-1])
     assert_kernel_matches_plain(csr_expand, "csr_expand", on(cuda, cum - counts),
@@ -67,9 +80,15 @@ def test_csr_expand_kernel(cuda, f, cap, total_zero, rng):
 
 
 @pytest.mark.parametrize("n,cap,p", [(1, 3, 1.0), (513, 1024, 0.0), (3001, 1011, 0.3),
-                                     (1 << 20, 1 << 19, 0.4)])
+                                     (1 << 20, 1 << 19, 0.4), (1 << 20, 100_003, 0.4),
+                                     ("invalid_run", 9_000, 0.5), (1, 3, 0.0)])
 def test_compact_kernel(cuda, n, cap, p, rng):
-    csum = np.cumsum(rng.random(n) < p)
+    if n == "invalid_run":  # 50,000 dead lanes in a row
+        valid = rng.random(60_000) < p
+        valid[5_000:55_000] = False
+    else:
+        valid = rng.random(n) < p
+    csum = np.cumsum(valid)
     assert_kernel_matches_plain(compact, "compact", on(cuda, csum), on(cuda, [int(csum[-1])]), cap)
 
 

@@ -302,7 +302,8 @@ def test_carried_entry_merge_and_retire_bit_for_bit(levels, probed, first, secon
     jentry = jget()  # the reference's padded weighted rebuild at version 1
     assert jentry["version"] == 1 and jentry["n_real"] == first + 16
     trie_cache_entry_from_arrays(carried, lops, trie_fields(jentry["trie"]),
-                                 n_real=jentry["n_real"], version=jentry["version"])
+                                 n_real=jentry["n_real"], version=jentry["version"],
+                                 device="cpu")
     assert_same_arrays(trie_fields(get(own)["trie"]), trie_fields(jentry["trie"]), "rebuild")
     for step, (mutate, counter) in enumerate((
         (lambda r, rc: rc.append(r, {v: c.copy() for v, c in d2.items()}), "delta_merges"),

@@ -105,14 +105,32 @@ def test_hash_probe_edge_lanes(rng):
 # ---- K2: CSR expansion -------------------------------------------------------
 
 
+# fan-outs a tiled merge gets wrong (the CUDA kernel merges 1,792 items a
+# block): one hub row wider than a block, or a run of zero-count rows
+# longer than one, in 3,000 rows
+def shaped_counts(rng, shape):
+    counts = rng.integers(0, 5, 3000).astype(np.int32)
+    if shape == "hub":
+        counts[1234] = 5000
+    else:  # "zero_run"
+        counts[200:2800] = 0
+    return counts
+
+
 def expand_case(rng, f, zero_frac=0.3):
-    counts = rng.integers(0, 7, f).astype(np.int32)
-    counts[rng.random(f) < zero_frac] = 0
+    if isinstance(f, str):
+        counts = shaped_counts(rng, f)
+    else:
+        counts = rng.integers(0, 7, f).astype(np.int32)
+        counts[rng.random(f) < zero_frac] = 0
     cum = np.cumsum(counts).astype(np.int32)
-    return (cum - counts).astype(np.int32), rng.integers(0, 10**5, f).astype(np.int32), int(cum[-1])
+    base = rng.integers(0, 10**5, len(counts)).astype(np.int32)
+    return (cum - counts).astype(np.int32), base, int(cum[-1])
 
 
-@pytest.mark.parametrize("f,cap", [(1, 1024), (8, 1024), (100, 2048), (777, 1500), (37, 3000)])
+@pytest.mark.parametrize("f,cap", [(1, 1024), (8, 1024), (100, 2048), (777, 1500), (37, 3000),
+                                   ("hub", 12_345), ("hub", 4096), ("zero_run", 1500),
+                                   (1, 3)])
 @pytest.mark.parametrize("total_zero", [False, True])
 def test_csr_expand_vs_pallas(f, cap, total_zero, rng):
     starts, base, total = expand_case(rng, f)
@@ -152,10 +170,14 @@ def test_expand_counted_zero_counts():
 
 @pytest.mark.parametrize(
     "n,cap,p", [(1, 1024, 0.3), (1000, 1024, 0.3), (4096, 2048, 0.3), (777, 1500, 0.5),
-                (513, 1024, 0.0)]
+                (513, 1024, 0.0), (4000, 1024, 0.5), ("invalid_run", 1500, 0.5), (1, 3, 1.0)]
 )
 def test_compact_vs_pallas(n, cap, p, rng):
-    valid = rng.random(n) < p
+    if n == "invalid_run":  # 3,400 dead lanes in a row, longer than a block's 1,792 items
+        valid = rng.random(4000) < p
+        valid[300:3700] = False
+    else:
+        valid = rng.random(n) < p
     csum = np.cumsum(valid).astype(np.int32)
     live = int(csum[-1])
     want = compact_pallas(
@@ -287,3 +309,26 @@ def test_wrappers_reject_bad_inputs_and_count_only_launches():
     after = (hash_probe.launches, csr_expand.launches, compact.launches, radix_sort.launches,
              intersect.launches)
     assert after == before, "plain CPU runs are not kernel launches"
+
+
+def test_kernel_library_path_follows_every_header(tmp_path, monkeypatch):
+    """A kernel's library is named by a digest of its source and of every
+    header under csrc/, so an edited or added header means a rebuild."""
+    from repro_torch.kernels import _build
+
+    for src in _build.CSRC.iterdir():
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    names = ("csr_expand", "compact", "hash_probe")
+    before = {name: _build._lib_path(name) for name in names}
+    assert before == {name: _build._lib_path(name) for name in names}  # stable
+    header = tmp_path / "load_balance.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    edited = {name: _build._lib_path(name) for name in names}
+    assert all(edited[name] != before[name] for name in names)
+    (tmp_path / "extra.cuh").write_text("#pragma once\n")
+    added = {name: _build._lib_path(name) for name in names}
+    assert all(added[name] != edited[name] for name in names)
+    (tmp_path / "compact.cu").write_text((tmp_path / "compact.cu").read_text() + "\n")
+    assert _build._lib_path("compact") != added["compact"]
+    assert _build._lib_path("csr_expand") == added["csr_expand"]

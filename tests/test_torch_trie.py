@@ -150,7 +150,7 @@ def test_trie_from_arrays_round_trip(rng):
     carried = trie_from_arrays(lops, [
         None if f is None else jax.tree_util.tree_map(lambda a: a.numpy(), f)
         for f in fields(built)
-    ])
+    ], device="cpu")
     assert_same(fields(carried), fields(built))
     assert (carried.n, carried.L, carried.trivial) == (built.n, built.L, built.trivial)
 
@@ -212,7 +212,7 @@ def test_executor_on_carried_trie_and_plan(agg, squeeze, rng):
     cp = capacity_plan_from_reference(jcp)
     assert str(cp) == str(jcp)
     tries = {
-        a: trie_from_arrays(lo, ref_fields(jtries[a]), empty=jtries[a].empty)
+        a: trie_from_arrays(lo, ref_fields(jtries[a]), empty=jtries[a].empty, device="cpu")
         for a, lo in jsched.level_ops.items()
     }
     fn = compiled.make_executor(fj, cp.capacities, compact_to=cp.compact_to,
