@@ -5,8 +5,7 @@ Run from the repository root:  python3 chip_smoke.py [--seed 0]
 
 Phases (any failure raises, and the script exits non-zero):
   1. Build: compile the five CUDA kernels (K1-K5) from src/repro_torch/
-     kernels/csrc, one nvcc each, in parallel, and beside them two more
-     builds of K2 and K3 (phases 8 and 9); print ptxas's register and
+     kernels/csrc, one nvcc each, in parallel; print ptxas's register and
      spill lines.
   2. Main path: repro_torch.core.compiled_free_join on the card, with the
      kernels' launch counters set to 0 just before and read just after:
@@ -52,12 +51,6 @@ Phases (any failure raises, and the script exits non-zero):
      computes the same function, that call, as device time from
      torch.profiler after warm-up, beside the least time the card could
      take (bound); CUDA-event wall times per call beside them.
-  8. Window copy: K2 and K3 as shipped (TMA bulk copies into shared
-     memory) against the same kernels with plain coalesced loads, on the
-     main path's largest inputs, each first held exact against the plain
-     version, timed in turns (shipped, other, other, shipped).
-  9. Where K2's and K3's time goes: a build with per-block phase clocks
-     (searches, window copy, merge, writes) run once on the same inputs.
 
 The last line is {"ok": true, "device": {...}}; the line before it the
 `kernels` JSON record, and before that the card's name and power limit.
@@ -66,7 +59,6 @@ It needs one card, and fails when there is none.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import subprocess
 import sys
@@ -592,7 +584,7 @@ def edge_cases(device):
         cum = np.cumsum(counts)
         return t(cum - counts), t(rng.integers(0, 10**6, len(counts))), t([int(cum[-1])]), cap
 
-    # the shapes a tiled merge gets wrong (K2 and K3 merge 1,792 items a block)
+    # the shapes a tiled merge gets wrong (K2 merges 2,304 items a block, K3 1,792)
     hub = rng.integers(0, 7, 60_000)
     hub[31_337] = 100_000  # one row over 100,000 slots
     empty_run = rng.integers(0, 7, 60_000)
@@ -845,145 +837,6 @@ def timing(mods, captured, launches, errors, paths):
     return records
 
 
-# ---------------------------------------------------------------------------
-# phases 8 and 9: K2 and K3 built other ways (window copy, phase trace)
-# ---------------------------------------------------------------------------
-
-MERGE_PATH = ("csr_expand", "compact")  # the kernels on the merge-path core
-# builds of them beside the shipped one: the window copy the shipped build
-# does not take, and the shipped kernel with per-block phase clocks
-VARIANTS = {"plain_loads": "-DREPRO_LB_TMA_WINDOW=0", "traced": "-DREPRO_LB_TRACE"}
-
-
-def start_variant_builds():
-    """Start one nvcc for each kernel on the merge-path core and each
-    variant; returns (variant, name) -> (process, library path)."""
-    from repro_torch.kernels import _build
-
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for variant, flag in VARIANTS.items():
-        for name in MERGE_PATH:
-            out = _build.BUILD_DIR / f"lib{name}-{variant}.so"
-            cmd = [_build.nvcc(), *_build.NVCC_FLAGS, flag, "-Xptxas", "-v",
-                   "-o", str(out), str(_build.CSRC / f"{name}.cu")]
-            procs[variant, name] = (subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), out)
-    return procs
-
-
-def finish_variant_builds(procs):
-    """Wait for the builds, print their ptxas lines, load the libraries;
-    returns (variant, name) -> (library, launcher)."""
-    from repro_torch.kernels import _build
-
-    libs = {}
-    for (variant, name), (proc, out) in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            fail(f"{name} ({variant}) failed to build:\n{log}")
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"build: {name} ({variant}): {line.strip()}")
-        lib = ctypes.CDLL(str(out))
-        symbol, argtypes = _build._SIGNATURES[name]
-        fn = getattr(lib, symbol)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        libs[variant, name] = (lib, fn)
-    return libs
-
-
-def variant_call(fn, name, args):
-    """The wrapper's allocation and launch, through another build."""
-    import torch
-
-    if name == "csr_expand":
-        starts, base, total, cap = args
-        outs = tuple(torch.empty(cap, dtype=torch.int32, device=starts.device) for _ in "ab")
-        sizes = (starts.shape[0], cap)
-    else:
-        csum, live, cap = args
-        outs = (torch.empty(cap, dtype=torch.int32, device=csum.device),)
-        sizes = (csum.shape[0], cap)
-    ptrs = [a.data_ptr() for a in args[:-1] + outs]
-    rc = fn(*ptrs, *sizes, torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        fail(f"{name} (another build): launch failed ({rc})")
-    return outs if len(outs) > 1 else outs[0]
-
-
-def window_copy_ab(mods, libs, captured):
-    """K2 and K3 as shipped (TMA bulk copies) against plain coalesced loads
-    on the main path's largest inputs: exact against the plain version
-    first, then device time in turns (shipped, other, other, shipped)."""
-    import torch
-
-    out = {}
-    for name in MERGE_PATH:
-        args = captured[name]
-        _lib, fn = libs["plain_loads", name]
-        other = lambda f=fn, n=name, a=args: variant_call(f, n, a)  # noqa: E731
-        got, want = other(), plain_of(mods, name)(*args)
-        torch.cuda.synchronize()
-        if max_abs_err(got, want) != 0:
-            fail(f"{name} with plain-load windows differs from its plain version")
-        shipped = lambda f=wrapper_of(mods, name), a=args: f(*a)  # noqa: E731
-        turns = [("tma", shipped), ("plain_loads", other), ("plain_loads", other),
-                 ("tma", shipped)]
-        times = {"tma": [], "plain_loads": []}
-        for which, call in turns:
-            times[which].append(device_ms(call, iters=50, warmup=5)[0])
-        out[name] = {k: {"ms": v, "mean_ms": sum(v) / len(v)} for k, v in times.items()}
-    print("window copy: " + json.dumps(out), flush=True)
-    return out
-
-
-def phase_breakdown(mods, libs, captured):
-    """Where K2's and K3's time goes on the main path's largest inputs, from
-    the traced build (the shipped kernel plus thread 0's clock64 and
-    globaltimer marks, load_balance.cuh): for the blocks that merge, the
-    mean cycles of the searches, the window copy, the merge and the writes;
-    the blocks' lifetimes, how many were alive at once on average, and the
-    span from the first block's start to the last one's end."""
-    import torch
-
-    out = {}
-    for name in MERGE_PATH:
-        lib, fn = libs["traced", name]
-        lib.lb_trace_clear.restype = lib.lb_trace_read.restype = ctypes.c_int
-        lib.lb_trace_read.argtypes = (ctypes.c_void_p,)
-        args = captured[name]
-        got = variant_call(fn, name, args)
-        torch.cuda.synchronize()
-        if max_abs_err(got, plain_of(mods, name)(*args)) != 0:
-            fail(f"{name} (traced build) differs from its plain version")
-        buf = np.zeros((1 << 14, 8), np.uint64)  # load_balance.cuh kTraceBlocks
-        if lib.lb_trace_clear() != 0:
-            fail(f"{name}: clearing the trace buffer failed")
-        variant_call(fn, name, args)
-        torch.cuda.synchronize()
-        if lib.lb_trace_read(buf.ctypes.data) != 0:
-            fail(f"{name}: reading the trace buffer failed")
-        b = buf[buf[:, 5] != 0].astype(np.int64)  # the blocks that ran
-        merged = b[:, 2] != 0
-        span = int(b[:, 6].max() - b[:, 5].min())
-        life = b[:, 6] - b[:, 5]
-
-        def cycles(i, j, rows=merged):
-            return float(np.mean(b[rows, j] - b[rows, i])) if rows.any() else 0.0
-
-        out[name] = {
-            "blocks": len(b), "merging_blocks": int(merged.sum()), "span_us": span / 1e3,
-            "blocks_alive_mean": float(life.sum() / span),
-            "merging_block_us": float(life[merged].mean()) / 1e3,
-            "cycles": {"searches": cycles(0, 1), "window": cycles(1, 2),
-                       "merge": cycles(2, 3), "writes": cycles(3, 4),
-                       "blocks_without_slots": cycles(0, 4, ~merged)},
-        }
-    print("phases: " + json.dumps(out), flush=True)
-    return out
-
-
 def cold_breakdown(workloads, sync):
     """Where a cold call's time goes, layer by layer, on fresh relation
     objects (same columns, new identities, so every cache misses): plan
@@ -1035,14 +888,12 @@ def main(argv=None) -> int:
     device = "cuda"
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     t = time.perf_counter()
-    variant_builds = start_variant_builds()
     logs = _build.build(verbose=True)
     print(f"build: {len(logs)} kernels in {time.perf_counter() - t:.3f} s (parallel nvcc)")
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"build: {name}: {line.strip()}")
-    variants = finish_variant_builds(variant_builds)
 
     mods = kernel_modules()
 
@@ -1077,8 +928,6 @@ def main(argv=None) -> int:
                                      "stage replay": replay_seen}, paths, device)
     cold_breakdown(workloads, sync)
     kernels = timing(mods, captured, launches, errors, paths)
-    window_copy_ab(mods, variants, captured)
-    phase_breakdown(mods, variants, captured)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,

@@ -21,21 +21,25 @@
 // memory and writes its slots coalesced. With every block resident at
 // once, the time is one block's chain of dependent steps (the searches,
 // the window copy, the merge) plus the launch. No tensor-core work:
-// compare and select.
+// compare and select. 7 merge items a thread, fewer than K2's 9: with
+// every block resident, a shorter run shortens the one chain that sets
+// the time.
 #include "load_balance.cuh"
 
 namespace {
 
+constexpr int kVT = 7;  // merge items a thread
+
 __global__ void __launch_bounds__(lb::kNT)
     compact_kernel(const int32_t* __restrict__ csum, const int32_t* __restrict__ live,
                    int32_t* __restrict__ src, int n, int capacity) {
-  __shared__ lb::Shared<1> sh;
+  __shared__ lb::Shared<1, kVT> sh;
   const int32_t* const srcs[1] = {csum};
   const lb::Tile t = lb::merge_tile(srcs, n, live, capacity, sh);
   int32_t* const outs[1] = {src};
   lb::fill_tail(outs, t.l, capacity);
 #pragma unroll
-  for (int step = 0; step < lb::kVT; ++step) {  // the block's slots, at most kNT * kVT
+  for (int step = 0; step < kVT; ++step) {  // the block's slots, at most kNT * kVT
     const int k = threadIdx.x + step * lb::kNT;
     if (k >= t.k1 - t.k0) break;
     src[t.k0 + k] = min(sh.ub[k], n - 1);
@@ -51,7 +55,8 @@ __global__ void __launch_bounds__(lb::kNT)
 REPRO_EXPORT int compact_launch(const void* csum, const void* live, void* src,
                                 int n, int capacity, void* stream) {
   if (capacity > 0) {
-    compact_kernel<<<lb::grid(n, capacity), lb::kNT, 0,
+    const unsigned int blocks = lb::grid<kVT>(n, capacity);
+    compact_kernel<<<blocks, lb::kNT, 0,
                      static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int32_t*>(csum), static_cast<const int32_t*>(live),
         static_cast<int32_t*>(src), n, capacity);

@@ -18,6 +18,9 @@
 // with the slot sequence (load_balance.cuh): each block takes an equal run
 // of merge items whatever the fan-outs, copies its windows of starts and
 // base into shared memory, merges there, and writes its slots coalesced.
+// 9 merge items a thread (2,304 a block, 2,603 blocks at the main path's
+// shape): the searches are a fixed cost a block, so a longer run than
+// K3's 7 pays them less often; the ptxas line shows no spills at 9.
 // A row's start tied with a slot consumes the row first, so in a run of
 // zero-count rows sharing one start the slot goes to the last of them, the
 // row whose count is not zero. No tensor-core work: compare and select.
@@ -25,17 +28,19 @@
 
 namespace {
 
+constexpr int kVT = 9;  // merge items a thread
+
 __global__ void __launch_bounds__(lb::kNT)
     csr_expand_kernel(const int32_t* __restrict__ starts, const int32_t* __restrict__ base,
                       const int32_t* __restrict__ total, int32_t* __restrict__ fr_out,
                       int32_t* __restrict__ member_out, int f, int capacity) {
-  __shared__ lb::Shared<2> sh;
+  __shared__ lb::Shared<2, kVT> sh;
   const int32_t* const srcs[2] = {starts, base};
   const lb::Tile t = lb::merge_tile(srcs, f, total, capacity, sh);
   int32_t* const outs[2] = {fr_out, member_out};
   lb::fill_tail(outs, t.l, capacity);
 #pragma unroll
-  for (int step = 0; step < lb::kVT; ++step) {  // the block's slots, at most kNT * kVT
+  for (int step = 0; step < kVT; ++step) {  // the block's slots, at most kNT * kVT
     const int k = threadIdx.x + step * lb::kNT;
     if (k >= t.k1 - t.k0) break;
     const int fr = max(sh.ub[k] - 1, 0);  // ub <= f, so fr <= f - 1
@@ -57,7 +62,8 @@ REPRO_EXPORT int csr_expand_launch(const void* starts, const void* base,
                                    const void* total, void* fr, void* member,
                                    int f, int capacity, void* stream) {
   if (capacity > 0) {
-    csr_expand_kernel<<<lb::grid(f, capacity), lb::kNT, 0,
+    const unsigned int blocks = lb::grid<kVT>(f, capacity);
+    csr_expand_kernel<<<blocks, lb::kNT, 0,
                         static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int32_t*>(starts), static_cast<const int32_t*>(base),
         static_cast<const int32_t*>(total), static_cast<int32_t*>(fr),

@@ -10,7 +10,8 @@
 // work whatever the data: a hub row that fans out over a million slots
 // and a run of a million empty rows cost the same as any other run.
 //
-// One block of kNT threads owns kTile = kNT * kVT consecutive diagonals:
+// One block of kNT threads owns kTile = kNT * kVT consecutive diagonals
+// (kVT, the merge items a thread, is each kernel's own: 9 for K2, 7 for K3):
 //   1. Warps 0 and 1 find where the block's first and last diagonal cross
 //      A, each with a warp-wide 33-ary search over A in device memory (32
 //      probes a step, so about 5 dependent loads instead of 21 for two
@@ -36,34 +37,23 @@
 // neighbouring blocks overlap by one entry), each output slot is written
 // once; there is no per-slot search. The work is integer compare and select
 // with no matrix product, so the tensor cores (wgmma) have nothing to do.
-// Shared memory: (kWindows * kWin + kTile) int32 a block, under 22 KB.
+// Shared memory: (kWindows * kWin + kTile) int32 a block, under 28 KB.
 #pragma once
 
 #include "common.cuh"
 
-// The window copy: 1 = TMA bulk copies on an mbarrier, 0 = coalesced plain
-// loads. A compile-time choice, timed against each other on the card by
-// chip_smoke.py (the shipped build takes the default).
-#ifndef REPRO_LB_TMA_WINDOW
-#define REPRO_LB_TMA_WINDOW 1
-#endif
-
 namespace lb {
 
-constexpr int kNT = 256;           // threads a block
-constexpr int kVT = 7;             // merge items a thread
-constexpr int kTile = kNT * kVT;   // merge items a block
-// A window holds up to kTile + 1 entries, plus up to 3 on each side when it
-// is rounded out to 16-byte bounds; a multiple of 4 entries.
-constexpr int kWin = (kTile + 1 + 6 + 3) / 4 * 4;
+constexpr int kNT = 256;  // threads a block
 
-// Phase clocks of each block, for chip_smoke.py's breakdown of where the
-// time goes: compiled only with -DREPRO_LB_TRACE, never into the shipped
-// libraries. Thread 0 of block b writes clock64() at the kernel's entry
-// (0), after the searches (1), with the windows in shared memory (2),
-// after the merge (3) and after the block's writes (4), and globaltimer
-// at the entry (5) and the end (6); a block that stops early leaves the
-// later marks 0.
+// Phase clocks of each block, for tools/merge_path_phases.py's breakdown of
+// where the time goes: compiled only with -DREPRO_LB_TRACE, never into the
+// shipped libraries. Thread 0 of block b writes clock64() at the kernel's
+// entry (0), after the searches (1), with the windows in shared memory
+// (2), after the merge (3) and after the block's writes (4), globaltimer
+// at the entry (5) and the end (6), and the grid's size (7), so that a
+// reader can tell a grid larger than the buffer; a block that stops early
+// leaves the later marks 0.
 constexpr int kTraceBlocks = 1 << 14;
 #ifdef REPRO_LB_TRACE
 __device__ unsigned long long trace_buf[kTraceBlocks][8];
@@ -76,6 +66,7 @@ __device__ __forceinline__ void mark(int phase) {
       asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
       trace_buf[blockIdx.x][phase == 0 ? 5 : 6] = ns;
     }
+    if (phase == 0) trace_buf[blockIdx.x][7] = gridDim.x;
   }
 }
 #else
@@ -83,9 +74,13 @@ __device__ __forceinline__ void mark(int) {}
 #endif
 
 // A block's shared memory, with kWindows windows (K2: starts and base; K3:
-// csum).
-template <int kWindows>
+// csum) and kVT merge items a thread.
+template <int kWindows, int kVT>
 struct Shared {
+  static constexpr int kTile = kNT * kVT;  // merge items a block
+  // A window holds up to kTile + 1 entries, plus up to 3 on each side when
+  // it is rounded out to 16-byte bounds; a multiple of 4 entries.
+  static constexpr int kWin = (kTile + 1 + 6 + 3) / 4 * 4;
   alignas(16) int32_t win[kWindows][kWin];
   int32_t ub[kTile];  // staged ub of the block's slots
   alignas(8) uint64_t bar;
@@ -99,8 +94,10 @@ struct Tile {
   int origin[2];  // win[w][origin[w] + r] holds array w's entry r
 };
 
-// Blocks for n entries and up to `capacity` slots.
+// Blocks of kVT items a thread for n entries and up to `capacity` slots.
+template <int kVT>
 inline unsigned int grid(int n, int capacity) {
+  constexpr long long kTile = kNT * kVT;
   return static_cast<unsigned int>((static_cast<long long>(n) + capacity + kTile - 1) / kTile);
 }
 
@@ -142,14 +139,12 @@ __device__ __forceinline__ int lead(const int32_t* p) {
   return static_cast<int>((reinterpret_cast<uintptr_t>(p) & 15) >> 2);
 }
 
-#if REPRO_LB_TMA_WINDOW
 // Bytes of the 16-byte granules covering p[0..count).
 __device__ __forceinline__ uint32_t span_bytes(const int32_t* p, int count) {
   const uintptr_t lo = reinterpret_cast<uintptr_t>(p) & ~uintptr_t{15};
   const uintptr_t hi = (reinterpret_cast<uintptr_t>(p + count) + 15) & ~uintptr_t{15};
   return static_cast<uint32_t>(hi - lo);
 }
-#endif
 
 // The block's part of the merge of a[0..n) with the slots 0..L-1, L =
 // min(*total, capacity). Fills sh.ub[0 .. k1 - k0) with ub of slots k0..,
@@ -157,22 +152,21 @@ __device__ __forceinline__ uint32_t span_bytes(const int32_t* p, int count) {
 // every thread returns the same tile; k1 == k0 when the block emits no
 // slot, and then nothing else was done. Ends with a barrier, so sh.ub and
 // sh.win can be read.
-template <int kWindows>
+template <int kWindows, int kVT>
 __device__ __forceinline__ Tile merge_tile(const int32_t* const (&srcs)[kWindows], int n,
                                            const int32_t* total, int capacity,
-                                           Shared<kWindows>& sh) {
+                                           Shared<kWindows, kVT>& sh) {
+  constexpr int kTile = Shared<kWindows, kVT>::kTile;
   const int32_t* __restrict__ a = srcs[0];
   const long long d0 = static_cast<long long>(blockIdx.x) * kTile;
   Tile t{};
   mark(0);
   t.l = max(0, min(__ldg(total), capacity));  // in flight during the searches
   const int warp = threadIdx.x >> 5;
-#if REPRO_LB_TMA_WINDOW
   if (threadIdx.x == 0) {
     asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(&sh.bar)) : "memory");
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-#endif
   if (warp < 2) {
     const int s = warp_split(a, n, capacity, d0 + warp * kTile);
     if ((threadIdx.x & 31) == 0) sh.split[warp] = s;
@@ -191,7 +185,6 @@ __device__ __forceinline__ Tile merge_tile(const int32_t* const (&srcs)[kWindows
   // windows: entries [w0, w1) of each source
   const int w0 = max(t.i0 - 1, 0), w1 = max(t.i1, w0 + 1);
   for (int w = 0; w < kWindows; ++w) t.origin[w] = lead(srcs[w] + w0) - w0;
-#if REPRO_LB_TMA_WINDOW
   if (threadIdx.x == 0) {
     const uint32_t bar = smem_addr(&sh.bar);
     uint32_t bytes[kWindows], sum = 0;
@@ -215,12 +208,6 @@ __device__ __forceinline__ Tile merge_tile(const int32_t* const (&srcs)[kWindows
         : "r"(smem_addr(&sh.bar))
         : "memory");
   }
-#else
-  for (int w = 0; w < kWindows; ++w) {
-    for (int r = w0 + threadIdx.x; r < w1; r += kNT) sh.win[w][t.origin[w] + r] = srcs[w][r];
-  }
-  __syncthreads();
-#endif
   mark(2);
 
   // this thread's run of kVT diagonals, in the block's coordinates

@@ -56,7 +56,7 @@ def test_hash_probe_kernel(cuda, n, k, q, rng):
     assert_kernel_matches_plain(hash_probe, "hash_probe", table.slots, table.keys, dead, 32)
 
 
-# fan-outs a tiled merge gets wrong (the kernel merges 1,792 items a block)
+# fan-outs a tiled merge gets wrong (the kernel merges 2,304 items a block)
 def shaped_counts(rng, shape):
     counts = rng.integers(0, 7, 60_000)
     if shape == "hub":  # one row over 100,000 slots

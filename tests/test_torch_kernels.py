@@ -105,7 +105,7 @@ def test_hash_probe_edge_lanes(rng):
 # ---- K2: CSR expansion -------------------------------------------------------
 
 
-# fan-outs a tiled merge gets wrong (the CUDA kernel merges 1,792 items a
+# fan-outs a tiled merge gets wrong (the CUDA kernel merges 2,304 items a
 # block): one hub row wider than a block, or a run of zero-count rows
 # longer than one, in 3,000 rows
 def shaped_counts(rng, shape):
