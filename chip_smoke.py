@@ -5,8 +5,10 @@ Run from the repository root:  python3 chip_smoke.py [--seed 0]
 
 Phases (any failure raises, and the script exits non-zero):
   1. Build: compile the five CUDA kernels (K1-K5) from src/repro_torch/
-     kernels/csrc, one nvcc each, in parallel; print ptxas's register and
-     spill lines.
+     kernels/csrc, one nvcc each, in parallel; print ptxas's register,
+     spill and shared-memory lines for each kernel function (K5 has two:
+     the directory pre-pass and the search, whose directory is dynamic
+     shared memory).
   2. Main path: repro_torch.core.compiled_free_join on the card, with the
      kernels' launch counters set to 0 just before and read just after:
      LSQB q1 (the triangle over `knows` at SF 10: 1,800,200 rows, 300,100
@@ -43,14 +45,23 @@ Phases (any failure raises, and the script exits non-zero):
      size, a one-row table or key set, all -1 lanes, total = 0, all hits,
      all misses, keys outside the key range; for K2 and K3 the shapes a
      tiled merge gets wrong: a hub row over 100,000 slots, 50,000 empty
-     rows or dead lanes in a row, total or live above the capacity).
-     Equality is exact: every output is an integer (tolerance 0).
+     rows or dead lanes in a row, total or live above the capacity; for
+     K5 the bucket directory's: b over the whole int32 range, N = 1 and 2,
+     a dense run with one far outlier, queries at b[0] and b[N-1], Q = 1).
+     K5 also on its two other shapes: the reference's kern.intersect.100k
+     (100,000 sorted queries into the distinct keys of 100,000 draws from
+     [0, 2^30)) and large N (4,194,304 queries, half members, into
+     2,097,152 distinct keys from [0, 2^24)); every K5 input is held
+     against numpy's searchsorted too. Equality is exact: every output is
+     an integer (tolerance 0).
   6. Where a cold call's time goes: plan choice, uploads + trie builds,
      and the adaptive run, timed separately on fresh relation objects.
   7. Timing: each kernel, its plain version and, where one PyTorch call
      computes the same function, that call, as device time from
-     torch.profiler after warm-up, beside the least time the card could
-     take (bound); CUDA-event wall times per call beside them.
+     torch.profiler after warm-up (all kernels of one call summed),
+     beside the least time the card could take (bound); CUDA-event wall
+     times per call beside them. K5's record holds its two other shapes
+     under "shapes".
 
 The last line is {"ok": true, "device": {...}}; the line before it the
 `kernels` JSON record, and before that the card's name and power limit.
@@ -97,6 +108,20 @@ JOIN_KERNELS = ("hash_probe", "csr_expand", "compact", "radix_rank")
 
 def fail(msg: str):
     raise RuntimeError(msg)
+
+
+def ptxas_report(log: str):
+    """(kernel function, line) for ptxas's register, spill and shared-memory
+    lines in an nvcc -Xptxas -v log."""
+    import re
+
+    fn = "?"
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            m = re.search(r"\d([a-z_]+_kernel)", line)
+            fn = m.group(1) if m else line.split()[-1][:40]
+        elif "registers" in line or "spill" in line:
+            yield fn, line.strip()
 
 
 def kernel_modules():
@@ -476,6 +501,33 @@ def stage_replay(device: str, seed: int, sync, n: int = 60_000, dom: int = 4_000
 # ---------------------------------------------------------------------------
 
 
+def intersect_shapes(seed: int, device) -> dict[str, tuple]:
+    """K5's two shapes besides the knows one, as device tensors (queries a,
+    sorted distinct keys b): the reference's kern.intersect.100k
+    (benchmarks/bench_kernels.py:48, Generic Join's sorted case: 100,000
+    sorted draws from [0, 2^30) into the sorted distinct keys of 100,000
+    more; bound by the launch) and large N (4,194,304 queries, half drawn
+    from b and half from [0, 2^24), into 2,097,152 distinct keys from
+    [0, 2^24): b is 8 MB, larger than any shared memory)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    a = np.sort(rng.integers(0, 2**30, 100_000).astype(np.int32))
+    shapes = {"sorted_100k": (a, np.unique(rng.integers(0, 2**30, 100_000).astype(np.int32)))}
+    b = np.sort(rng.permutation(1 << 24)[: 1 << 21]).astype(np.int32)
+    a = np.concatenate([b[rng.integers(0, len(b), 1 << 21)],
+                        rng.integers(0, 1 << 24, 1 << 21).astype(np.int32)])
+    shapes["large_n"] = (rng.permutation(a), b)
+    return {k: tuple(torch.as_tensor(x).to(device) for x in ab) for k, ab in shapes.items()}
+
+
+def intersect_numpy(a: np.ndarray, b: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """K5's function from numpy's searchsorted: (mask, pos)."""
+    pos = np.searchsorted(b, a)
+    mask = (pos < len(b)) & (b[np.minimum(pos, len(b) - 1)] == a)
+    return mask, np.where(mask, pos, -1)
+
+
 def intersect_path(knows, device):
     """ops.intersect_sorted(a, b) at the size LSQB SF 10 gives it: b the
     sorted distinct knows sources, a every knows destination. Checked
@@ -487,10 +539,9 @@ def intersect_path(knows, device):
     a_host = knows.columns["b"].astype(np.int32)
     a, b = torch.as_tensor(a_host).to(device), torch.as_tensor(b_host).to(device)
     mask, pos = ops.intersect_sorted(a, b)
-    want_pos = np.searchsorted(b_host, a_host)
-    want_mask = (want_pos < len(b_host)) & (b_host[np.minimum(want_pos, len(b_host) - 1)] == a_host)
+    want_mask, want_pos = intersect_numpy(a_host, b_host)
     if not (np.array_equal(mask.cpu().numpy(), want_mask)
-            and np.array_equal(pos.cpu().numpy(), np.where(want_mask, want_pos, -1))):
+            and np.array_equal(pos.cpu().numpy(), want_pos)):
         fail("intersect_sorted differs from numpy's searchsorted on the knows input")
     print(f"intersect path: {len(a_host)} queries into {len(b_host)} sorted keys, "
           f"{int(want_mask.sum())} members", flush=True)
@@ -616,13 +667,23 @@ def edge_cases(device):
         (t(rcsum[:, :1]), t([digit[0]]), t([1])),
     ]
     b = np.unique(rng.integers(0, 1 << 20, 10_000))[:5000]
+    lo32, hi32 = -(2**31), 2**31 - 1
+    full = np.unique(np.concatenate([[lo32, hi32], rng.integers(lo32, hi32, 3000)]))
+    dense = np.append(np.arange(1000, 51_000), hi32)  # 50,000 keys and one far outlier
     cases["intersect"] = [
-        (t([7, 3, -1, 8, 2**31 - 1]), t([7])),  # N = 1
-        (t(rng.integers(0, 1 << 20, 1033)), t(b)),  # Q not a multiple of 1024
+        (t([7, 3, -1, 8, hi32, lo32]), t([7])),  # N = 1 (span 0)
+        (t([lo32, hi32, 0, -5, lo32 + 1, hi32 - 1]), t([lo32, hi32])),  # N = 2, span 2^32 - 1
+        (t(rng.integers(0, 1 << 20, 1033)), t(b)),  # Q not a multiple of any tile
         (t(b[rng.integers(0, len(b), 3001)]), t(b)),  # all hits
         (t(np.setdiff1d(rng.integers(0, 1 << 20, 2000), b)), t(b)),  # all misses
         (t(np.concatenate([rng.integers(-(2**31), int(b[0]), 500),
                            rng.integers(int(b[-1]) + 1, 2**31 - 1, 500)])), t(b)),  # outside
+        (t(np.concatenate([full[rng.integers(0, len(full), 4000)],
+                           rng.integers(lo32, hi32, 4099), [lo32, hi32, 0, -1]])), t(full)),
+        (t(np.concatenate([rng.integers(0, 60_000, 5000), [hi32, hi32 - 1, 1000, 50_999,
+                                                            51_000]])), t(dense)),
+        (t([b[0], b[-1], b[0] - 1, b[-1] + 1, b[-1], b[0]]), t(b)),  # at b[0] and b[N-1]
+        (t([b[17]]), t(b)),  # Q = 1
     ]
     return cases
 
@@ -645,12 +706,13 @@ def max_abs_err(got, want) -> int:
     return max(errs)
 
 
-def parity(mods, captured, streamed, paths, device):
+def parity(mods, captured, streamed, paths, k5_shapes, device):
     """Exact equality of each kernel and its plain version, on the largest
     input its path gave it (`captured`; `paths` names the path), the
     streaming path's largest (`streamed`: one standing-q1 ingest's, and
-    the stage replay's registration and first batch's) and the edge
-    cases. Returns name -> max abs error on the `captured` input."""
+    the stage replay's registration and first batch's), for K5 its other
+    shapes (`k5_shapes`), and the edge cases; every K5 result also equals
+    numpy's. Returns name -> max abs error on the `captured` input."""
     errors = {}
     cases = edge_cases(device)
     for name in JOIN_KERNELS:
@@ -661,6 +723,8 @@ def parity(mods, captured, streamed, paths, device):
             fail(f"{name}: the {paths[name]} gave it no input to compare on")
         where = [(paths[name], captured[name])] + [
             (path, seen[name]) for path, seen in streamed.items() if name in seen]
+        if name == "intersect":
+            where += [(f"{shape} shape", args) for shape, args in k5_shapes.items()]
         for i, args in enumerate([args for _p, args in where] + cases[name]):
             got = wrapper_of(mods, name)(*args)
             want = plain_of(mods, name)(*args)
@@ -669,9 +733,14 @@ def parity(mods, captured, streamed, paths, device):
             err = max_abs_err(got, want) if shapes_ok else None
             if err != 0:
                 fail(f"{name}: kernel differs from its plain version on case {i} (err {err})")
+            if name == "intersect" and not all(
+                    np.array_equal(g.cpu().numpy(), w) for g, w in
+                    zip(got, intersect_numpy(*(x.cpu().numpy() for x in args)))):
+                fail(f"intersect: kernel differs from numpy's searchsorted on case {i}")
             if i == 0:
                 errors[name] = err
-        inputs = ", ".join(f"the {p}'s largest input" for p, _a in where)
+        inputs = ", ".join(f"the {p}'s largest input" if "shape" not in p else f"the {p}"
+                           for p, _a in where)
         print(f"parity: {name} exact on {inputs} and {len(cases[name])} edge cases", flush=True)
     return errors
 
@@ -808,32 +877,41 @@ def library_call(name, args, captured=None):
     return None
 
 
-def timing(mods, captured, launches, errors, paths):
-    """Device time of each kernel, its plain version and the library call
-    on the main path's largest input, beside the bound; the CUDA-event time
-    per call beside them. L2 is warm: the same inputs are reused across
-    the timed calls."""
+def time_kernel(mods, name, args, captured=None) -> dict:
+    """Device time of kernel `name`, its plain version and the library
+    call on one input, beside the bound; the CUDA-event time per call
+    beside them. L2 is warm: the same inputs are reused across the timed
+    calls."""
+    kernel, plain = wrapper_of(mods, name), plain_of(mods, name)
+    lib = library_call(name, args, captured)
+    ms, timer = device_ms(lambda: kernel(*args))
+    plain_ms, _ = device_ms(lambda: plain(*args), iters=5, warmup=1)
+    nbytes, ops = bounds(name, args)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / SCALAR_OPS_PER_S * 1e3
+    return {
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": device_ms(lib)[0] if lib is not None else None,
+        "timer": timer,
+        "wall_ms": wall_ms(lambda: kernel(*args)),
+        "plain_wall_ms": wall_ms(lambda: plain(*args), iters=5, warmup=1),
+        "shape": [list(a.shape) if hasattr(a, "shape") else a for a in args],
+    }
+
+
+def timing(mods, captured, launches, errors, paths, k5_shapes):
+    """One record per kernel, timed on the largest input of its path; K5's
+    record also holds its other shapes, each timed the same way."""
     records = []
     for name, (_m, source, replaces) in KERNELS.items():
-        args = captured[name]
-        kernel, plain = wrapper_of(mods, name), plain_of(mods, name)
-        lib = library_call(name, args, captured)
-        ms, timer = device_ms(lambda f=kernel, a=args: f(*a))
-        plain_ms, _ = device_ms(lambda f=plain, a=args: f(*a), iters=5, warmup=1)
-        nbytes, ops = bounds(name, args)
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / SCALAR_OPS_PER_S * 1e3
-        records.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "path": paths[name],
-            "parity": "exact", "max_abs_err": errors[name],
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": device_ms(lib)[0] if lib is not None else None,
-            "timer": timer,
-            "wall_ms": wall_ms(lambda f=kernel, a=args: f(*a)),
-            "plain_wall_ms": wall_ms(lambda f=plain, a=args: f(*a), iters=5, warmup=1),
-            "shape": [list(a.shape) if hasattr(a, "shape") else a for a in args],
-        })
+        rec = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+               "launches": launches[name], "path": paths[name],
+               "parity": "exact", "max_abs_err": errors[name]}
+        rec.update(time_kernel(mods, name, captured[name], captured))
+        if name == "intersect":
+            rec["shapes"] = [{"name": shape, "max_abs_err": 0, **time_kernel(mods, name, args)}
+                             for shape, args in k5_shapes.items()]
+        records.append(rec)
     return records
 
 
@@ -891,9 +969,12 @@ def main(argv=None) -> int:
     logs = _build.build(verbose=True)
     print(f"build: {len(logs)} kernels in {time.perf_counter() - t:.3f} s (parallel nvcc)")
     for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"build: {name}: {line.strip()}")
+        for fn, line in ptxas_report(log):
+            print(f"build: {name}: {fn}: {line}")
+    from repro_torch.kernels import intersect
+
+    print("build: intersect: search_kernel's directory is dynamic shared memory, up to "
+          f"{4 * intersect.directory_entries(intersect.MAX_DIRECTORY_BITS)} bytes a block")
 
     mods = kernel_modules()
 
@@ -924,10 +1005,11 @@ def main(argv=None) -> int:
 
     captured = capture_main_path_inputs(workloads)
     captured["intersect"] = k5_args
+    k5_shapes = intersect_shapes(args.seed, device)
     errors = parity(mods, captured, {"standing-q1 ingest": q1_seen,
-                                     "stage replay": replay_seen}, paths, device)
+                                     "stage replay": replay_seen}, paths, k5_shapes, device)
     cold_breakdown(workloads, sync)
-    kernels = timing(mods, captured, launches, errors, paths)
+    kernels = timing(mods, captured, launches, errors, paths, k5_shapes)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,

@@ -36,7 +36,7 @@ _SIGNATURES = {
     "csr_expand": ("csr_expand_launch", (_P, _P, _P, _P, _P, _I, _I, _P)),
     "compact": ("compact_launch", (_P, _P, _P, _I, _I, _P)),
     "radix_rank": ("radix_rank_launch", (_P, _P, _P, _P, _I, _P)),
-    "intersect": ("intersect_launch", (_P, _P, _P, _P, _I, _I, _P)),
+    "intersect": ("intersect_launch", (_P, _P, _P, _P, _P, _I, _I, _I, _P)),
 }
 
 _lock = threading.Lock()

@@ -1,4 +1,4 @@
-// Sorted-set membership by lower-bound binary search (K5).
+// Sorted-set membership through a bucket directory over the key range (K5).
 //
 // Replaces: src/repro/kernels/intersect.py, _bsearch_kernel / intersect_pallas.
 // Computes: for each query a[i], the lower bound lo = the first position in
@@ -7,54 +7,280 @@
 // fixed-step search also yields); mask[i] = lo < n and b[lo] == a[i], and
 // pos[i] = lo where mask[i] is set, else -1.
 //
-// What bounds it on the H100: bytes. Each query reads one int32 and writes
-// one byte (mask) and one int32 (pos), 9 bytes a query, coalesced; b is
-// read by the searches at data-dependent addresses, log2(n) dependent loads
-// per query. At the sizes the path gives it (a few hundred thousand keys,
-// about a megabyte) b stays in the 50 MB L2 after its first touch, so
-// device-memory traffic is about 9 Q + 4 N bytes against 3.35 TB/s and the
-// search's dependent-load latency is what the time goes to.
+// What bounds it on the H100: the function moves 9 bytes a query (a read,
+// mask and pos written, coalesced) and 4 a key. A plain binary search over
+// b adds log2(n) dependent loads a query at data-dependent addresses; with
+// b in L2 that chain of L2 round trips, not the bytes, sets the time.
 //
-// What the design does about it: one thread per query, neighbouring
-// threads on neighbouring queries, so the reads of a and the writes of
-// mask and pos are coalesced and every output is written exactly once.
-// The Pallas kernel copies all of b into VMEM for each 1024-query block;
-// here b is left in device memory and the L2 serves the shared upper
-// levels of every search. Queries need no padding to a block multiple:
-// the ragged tail is masked by the bounds check.
+// What the design does about it: a bucket directory replaces the upper
+// levels of the search with one lookup in shared memory.
+//   - Buckets: with 2^r buckets (r from n, on the host: about one bucket a
+//     key, at most 2^kMaxDirBits), s the smallest shift with
+//     (b[n-1] - b[0]) >> s < 2^r, and bucket(x) = uint32(x - b[0]) >> s,
+//     computed in 32-bit unsigned arithmetic so that a b spanning the whole
+//     int32 range does not overflow. b is duplicate-free, so a bucket
+//     2^s ids wide holds at most 2^s keys.
+//   - dir[u] is the first i with bucket(b[i]) >= u, and dir[2^r] = n (the
+//     directory is padded with n to a multiple of 4 entries). A key in
+//     [b[0], b[n-1]] has its lower bound in [dir[u], dir[u+1]] for
+//     u = bucket(key); keys outside that range miss at 0 or n.
+//   - A pre-pass with one thread per element of b builds the directory:
+//     thread i writes dir[u] = i for u in (bucket(b[i-1]), bucket(b[i])],
+//     thread n the entries after the last key's bucket. Every entry is
+//     written exactly once, no atomics; b[0] and b[n-1] are read on the
+//     device, so the host never syncs.
+//   - The search kernel runs a persistent grid of kBlocksPerSM blocks an
+//     SM. Each block copies the directory into shared memory with one TMA
+//     bulk copy (tma.cuh), then its threads walk the queries kVQ at a time,
+//     the kVQ searches interleaved so that their loads of b overlap. A
+//     search runs inside the bucket only, for at most min(s, log2 n)
+//     steps, in b through L1 and L2; it tracks whether b at its upper end
+//     equals the key, so no further load decides membership.
+//   - Thread g of the grid takes queries g, g + P, g + 2P, ... (P threads
+//     in all): reads of a and writes of mask and pos stay coalesced, and
+//     the threads' shares differ by at most one query.
+#include <algorithm>
+
 #include "common.cuh"
+#include "tma.cuh"
+#ifdef REPRO_K5_COOPERATIVE
+#include <cooperative_groups.h>
+#endif
+
+// Design alternatives, timed on the card by tools/intersect_variants.py.
+#ifndef REPRO_K5_THREADS
+#define REPRO_K5_THREADS 512
+#endif
+#ifndef REPRO_K5_VQ
+#define REPRO_K5_VQ 4
+#endif
+#ifndef REPRO_K5_BLOCKS_PER_SM
+#define REPRO_K5_BLOCKS_PER_SM 2
+#endif
+#ifndef REPRO_K5_MAX_DIR_BITS
+#define REPRO_K5_MAX_DIR_BITS 14
+#endif
 
 namespace {
 
-__global__ void intersect_kernel(const int32_t* __restrict__ a,
-                                 const int32_t* __restrict__ b,
-                                 uint8_t* __restrict__ mask, int32_t* __restrict__ pos,
-                                 int q, int n) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= q) return;
-  const int32_t key = a[i];
-  int lo = 0, hi = n;  // lower bound: first position with b >= key
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (b[mid] < key) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
+constexpr int kSearchThreads = REPRO_K5_THREADS;
+constexpr int kVQ = REPRO_K5_VQ;  // queries a thread searches at once
+constexpr int kBlocksPerSM = REPRO_K5_BLOCKS_PER_SM;
+constexpr int kMaxDirBits = REPRO_K5_MAX_DIR_BITS;
+
+// Directory entries for 2^r buckets: 2^r + 1, padded to a multiple of 4
+// (a TMA copy moves a multiple of 16 bytes).
+constexpr int dir_entries(int r) { return ((1 << r) + 1 + 3) & ~3; }
+
+struct Keys {  // b's key range and the directory's bucket shift
+  int32_t b0, bl;
+  int s;
+};
+
+__device__ __forceinline__ Keys key_range(const int32_t* __restrict__ b, int n, int r) {
+  Keys k;
+  k.b0 = __ldg(b);
+  k.bl = __ldg(b + n - 1);
+  const uint32_t span = static_cast<uint32_t>(k.bl) - static_cast<uint32_t>(k.b0);
+  k.s = max(0, 32 - __clz(static_cast<int>(span)) - r);  // r >= 1, so s <= 31
+  return k;
+}
+
+// The bucket of x, for b[0] <= x <= b[n-1]: below 2^r.
+__device__ __forceinline__ int bucket(int32_t x, const Keys& k) {
+  return static_cast<int>((static_cast<uint32_t>(x) - static_cast<uint32_t>(k.b0)) >> k.s);
+}
+
+// This thread's share of the directory: for elements i = first, first +
+// stride, ... of b, the entries (bucket(b[i-1]), bucket(b[i])]; then, as
+// entries first, first + stride, ... after the last key's bucket, n.
+__device__ __forceinline__ void fill_directory(const int32_t* __restrict__ b, int n,
+                                               const Keys& k, int entries,
+                                               int32_t* __restrict__ dir, long long first,
+                                               long long stride) {
+  for (long long i = first; i < n; i += stride) {
+    const int hi = bucket(__ldg(b + i), k);
+    const int lo = i == 0 ? -1 : bucket(__ldg(b + i - 1), k);
+    for (int u = lo + 1; u <= hi; ++u) dir[u] = static_cast<int32_t>(i);
+  }
+  for (long long u = bucket(k.bl, k) + 1 + first; u < entries; u += stride) dir[u] = n;
+}
+
+__global__ void directory_kernel(const int32_t* __restrict__ b, int n, int r, int entries,
+                                 int32_t* __restrict__ dir) {
+  const Keys k = key_range(b, n, r);
+  fill_directory(b, n, k, entries, dir, static_cast<long long>(blockIdx.x) * blockDim.x +
+                 threadIdx.x, static_cast<long long>(gridDim.x) * blockDim.x);
+}
+
+__global__ void __launch_bounds__(kSearchThreads)
+    search_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
+                  int32_t* dir_g, uint8_t* __restrict__ mask, int32_t* __restrict__ pos,
+                  int q, int n, int r, int entries) {
+  const long long threads = static_cast<long long>(gridDim.x) * kSearchThreads;
+  const long long g = static_cast<long long>(blockIdx.x) * kSearchThreads + threadIdx.x;
+  const Keys k = key_range(b, n, r);
+#ifdef REPRO_K5_COOPERATIVE
+  fill_directory(b, n, k, entries, dir_g, g, threads);
+  cooperative_groups::this_grid().sync();
+#endif
+#ifdef REPRO_K5_PREFETCH
+  int32_t next[kVQ];  // the keys of this thread's next round
+#pragma unroll
+  for (int j = 0; j < kVQ; ++j) {
+    const long long i = g + j * threads;
+    next[j] = i < q ? __ldg(a + i) : k.b0;
+  }
+#endif
+#ifdef REPRO_K5_DIR_IN_L2
+  const int32_t* dir = dir_g;
+#else
+  extern __shared__ __align__(16) int32_t dir_s[];
+  __shared__ uint64_t bar;
+  if (threadIdx.x == 0) {
+#ifdef REPRO_K5_COOPERATIVE
+    asm volatile("fence.proxy.async.global;" ::: "memory");  // other blocks' stores, then TMA
+#endif
+    tma::init(&bar);
+    tma::expect(&bar, entries * 4u);
+    tma::copy(dir_s, dir_g, entries * 4u, &bar);
+  }
+  __syncthreads();  // the barrier is initialised before anyone waits on it
+  tma::wait(&bar);
+  const int32_t* dir = dir_s;
+#endif
+
+  for (long long i0 = g; i0 < q; i0 += kVQ * threads) {
+    int32_t key[kVQ];
+    int lo[kVQ], hi[kVQ];
+    bool eq[kVQ];  // b[hi] == key, where hi was set by the search
+#pragma unroll
+    for (int j = 0; j < kVQ; ++j) {
+#ifdef REPRO_K5_PREFETCH
+      key[j] = next[j];
+      const long long i = i0 + (kVQ + j) * threads;
+      next[j] = i < q ? __ldg(a + i) : k.b0;
+#else
+      const long long i = i0 + j * threads;
+      key[j] = i < q ? __ldg(a + i) : k.b0;
+#endif
+    }
+#pragma unroll
+    for (int j = 0; j < kVQ; ++j) {
+      const bool in = i0 + j * threads < q && key[j] >= k.b0 && key[j] <= k.bl;
+      const int u = in ? bucket(key[j], k) : 0;
+#ifdef REPRO_K5_DIR_IN_L2
+      const int d0 = __ldg(dir + u), d1 = __ldg(dir + u + 1);
+#else
+      const int d0 = dir[u], d1 = dir[u + 1];
+#endif
+      lo[j] = in ? d0 : (key[j] > k.bl ? n : 0);
+      hi[j] = in ? d1 : lo[j];
+      eq[j] = false;
+    }
+#ifndef REPRO_K5_NO_SEARCH
+    // The lower bound lies in [lo, hi]: below dir[u] every key is in an
+    // earlier bucket (smaller), from dir[u + 1] on in a later one (larger).
+    for (bool open = true; open;) {
+      int32_t v[kVQ];
+#pragma unroll
+      for (int j = 0; j < kVQ; ++j) {  // the kVQ loads, issued together
+        const int mid = static_cast<int>((static_cast<uint32_t>(lo[j]) + hi[j]) >> 1);
+        v[j] = lo[j] < hi[j] ? __ldg(b + mid) : 0;
+      }
+      open = false;
+#pragma unroll
+      for (int j = 0; j < kVQ; ++j) {
+        if (lo[j] < hi[j]) {
+          const int mid = static_cast<int>((static_cast<uint32_t>(lo[j]) + hi[j]) >> 1);
+          if (v[j] < key[j]) {
+            lo[j] = mid + 1;
+          } else {
+            hi[j] = mid;
+            eq[j] = v[j] == key[j];
+          }
+        }
+        open |= lo[j] < hi[j];
+      }
+    }
+#endif
+    // A bound the search never lowered is dir[u + 1], a key of a later
+    // bucket (or n): eq stays false, a miss.
+#pragma unroll
+    for (int j = 0; j < kVQ; ++j) {
+      const long long i = i0 + j * threads;
+      if (i < q) {
+        mask[i] = eq[j] ? 1 : 0;
+        pos[i] = eq[j] ? lo[j] : -1;
+      }
     }
   }
-  const bool found = lo < n && b[lo] == key;
-  mask[i] = found ? 1 : 0;
-  pos[i] = found ? lo : -1;
+}
+
+#ifdef REPRO_K5_DIR_IN_L2
+constexpr size_t kMaxSmem = 0;
+#else
+constexpr size_t kMaxSmem = dir_entries(kMaxDirBits) * sizeof(int32_t);
+#endif
+
+// Blocks of the persistent grid on device `dev`: kBlocksPerSM an SM, or
+// fewer if the largest directory does not fit; raises the kernel's
+// dynamic shared memory limit on first use.
+int grid_cap(int dev) {
+  static int cap[64];
+  if (dev < 0 || dev >= 64) return 0;
+  if (cap[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (kMaxSmem > 48 * 1024) {
+      cudaFuncSetAttribute(search_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(kMaxSmem));
+    }
+#ifdef REPRO_K5_CARVEOUT
+    // the least shared memory kBlocksPerSM blocks need, the rest L1 for b
+    const size_t need = kBlocksPerSM * (kMaxSmem + 16 + 1024);
+    cudaFuncSetAttribute(search_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                         static_cast<int>((need * 100 + 228 * 1024 - 1) / (228 * 1024)));
+#endif
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, search_kernel, kSearchThreads,
+                                                  kMaxSmem);
+    cap[dev] = sms * std::min(per_sm, kBlocksPerSM);
+  }
+  return cap[dev];
 }
 
 }  // namespace
 
-REPRO_EXPORT int intersect_launch(const void* a, const void* b, void* mask, void* pos,
-                                  int q, int n, void* stream) {
-  if (q > 0) {
-    intersect_kernel<<<grid_for(q), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int32_t*>(a), static_cast<const int32_t*>(b),
-        static_cast<uint8_t*>(mask), static_cast<int32_t*>(pos), q, n);
-  }
+// dir: scratch of dir_entries(r) int32, allocated by the caller.
+REPRO_EXPORT int intersect_launch(const void* a, const void* b, void* mask, void* pos, void* dir,
+                                  int q, int n, int r, void* stream) {
+  if (q <= 0) return static_cast<int>(cudaGetLastError());
+  if (n < 1 || r < 1 || r > kMaxDirBits) return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const long long want = (q + static_cast<long long>(kSearchThreads) - 1) / kSearchThreads;
+  const unsigned int blocks =
+      static_cast<unsigned int>(std::min(want, static_cast<long long>(grid_cap(dev))));
+  const int entries = dir_entries(r);
+#ifdef REPRO_K5_DIR_IN_L2
+  const size_t smem = 0;
+#else
+  const size_t smem = entries * sizeof(int32_t);
+#endif
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int32_t* a32 = static_cast<const int32_t*>(a);
+  const int32_t* b32 = static_cast<const int32_t*>(b);
+  int32_t* dir32 = static_cast<int32_t*>(dir);
+  uint8_t* mask8 = static_cast<uint8_t*>(mask);
+  int32_t* pos32 = static_cast<int32_t*>(pos);
+#ifdef REPRO_K5_COOPERATIVE
+  void* args[] = {&a32, &b32, &dir32, &mask8, &pos32, &q, &n, &r, const_cast<int*>(&entries)};
+  cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(search_kernel), blocks, kSearchThreads,
+                              args, smem, st);
+#else
+  directory_kernel<<<grid_for(n), kThreads, 0, st>>>(b32, n, r, entries, dir32);
+  search_kernel<<<blocks, kSearchThreads, smem, st>>>(a32, b32, dir32, mask8, pos32, q, n, r,
+                                                      entries);
+#endif
   return static_cast<int>(cudaGetLastError());
 }

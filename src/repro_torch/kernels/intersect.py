@@ -1,4 +1,4 @@
-"""Sorted-set intersection by batched binary search (K5; csrc/intersect.cu).
+"""Sorted-set intersection by batched lower-bound search (K5; csrc/intersect.cu).
 
 Generic Join's leading intersection (R1.x ∩ R2.x ∩ ...) iterates the
 smallest relation and probes the others. When trie keys are kept sorted
@@ -10,7 +10,10 @@ holds a[i].
 
 `intersect` launches the CUDA kernel for tensors on the card and runs
 `intersect_plain`, the same search written with tensor operations, for
-tensors on the CPU. `launches` counts kernel launches.
+tensors on the CPU. On the card a bucket directory over b's key range
+(2^r buckets, `directory_bits`) narrows each search to one bucket first;
+the wrapper allocates it as scratch. `launches` counts wrapper calls that
+launch the kernel.
 """
 from __future__ import annotations
 
@@ -19,6 +22,19 @@ import torch
 from repro_torch.kernels import _build
 
 launches = 0
+MAX_DIRECTORY_BITS = 13  # at most 2^13 buckets: a 32 KB directory (csrc: kMaxDirBits >= this)
+
+
+def directory_bits(n: int) -> int:
+    """r for N = n keys: about one bucket a key (the power of two at or
+    above n), at least 2 and at most 2^MAX_DIRECTORY_BITS buckets."""
+    return min(max(1, (n - 1).bit_length()), MAX_DIRECTORY_BITS)
+
+
+def directory_entries(r: int) -> int:
+    """The directory's int32 entries for 2^r buckets: 2^r + 1, padded to a
+    multiple of 4 (its copy into shared memory moves 16-byte granules)."""
+    return ((1 << r) + 1 + 3) // 4 * 4
 
 
 def intersect_plain(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -50,6 +66,8 @@ def intersect(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Ten
     q = a.shape[0]
     mask = torch.empty(q, dtype=torch.bool, device=device)
     pos = torch.empty(q, dtype=torch.int32, device=device)
-    _build.launch("intersect", device, a, b, mask, pos, q, b.shape[0])
+    r = directory_bits(b.shape[0])
+    scratch = torch.empty(directory_entries(r), dtype=torch.int32, device=device)
+    _build.launch("intersect", device, a, b, mask, pos, scratch, q, b.shape[0], r)
     launches += 1
     return mask, pos

@@ -127,6 +127,41 @@ def test_slice_on_card_matches_cpu(cuda, agg, rng):
             np.testing.assert_array_equal(got[1], want[1])
 
 
+I32_MIN, I32_MAX = -(2**31), 2**31 - 1
+# K5's bucket directory: the cases it could get wrong
+INTERSECT_HARD = ("full_span", "n1", "n2", "dense_outlier", "at_ends", "q1", "ragged")
+
+
+def intersect_hard_case(name, rng):
+    """(a, b) int32 numpy arrays: b over the whole int32 range (its span,
+    b[N-1] - b[0], is 2^32 - 1), N = 1 (span 0) and N = 2, a dense run of
+    50,000 keys with one outlier at 2^31 - 1 (nearly every key in one
+    bucket), queries equal to b[0] and b[N-1], Q = 1, and a Q of 4,099 (a
+    multiple of no tile)."""
+    keys = np.unique(rng.integers(0, 300_000, 40_000))
+    if name == "full_span":
+        b = np.unique(np.concatenate([[I32_MIN, I32_MAX], rng.integers(I32_MIN, I32_MAX, 3000)]))
+        a = np.concatenate([b[rng.integers(0, len(b), 500)], rng.integers(I32_MIN, I32_MAX, 500),
+                            [I32_MIN, I32_MAX, 0, -1]])
+    elif name == "n1":
+        a, b = [7, 3, -1, 8, I32_MAX, I32_MIN], [7]
+    elif name == "n2":
+        a, b = [I32_MIN, I32_MAX, 0, -5, I32_MIN + 1, I32_MAX - 1], [I32_MIN, I32_MAX]
+    elif name == "dense_outlier":
+        b = np.append(np.arange(1000, 51_000), I32_MAX)
+        a = np.concatenate([rng.integers(0, 60_000, 3000), [I32_MAX, I32_MAX - 1, 1000, 50_999,
+                                                             51_000]])
+    elif name == "at_ends":
+        b = keys
+        a = [b[0], b[-1], b[0] - 1, b[-1] + 1, b[-1], b[0]]
+    elif name == "q1":
+        b, a = keys, keys[[17]]
+    else:  # ragged
+        b = keys
+        a = np.concatenate([b[rng.integers(0, len(b), 2050)], rng.integers(-5, 300_005, 2049)])
+    return np.asarray(a, np.int32), np.asarray(b, np.int32)
+
+
 @pytest.mark.parametrize("m,n", [(1, 1), (1025, 500), (300_001, 300_100)])
 def test_intersect_kernel(cuda, m, n, rng):
     b = np.unique(rng.integers(0, 1 << 22, 2 * n))[:n]
@@ -137,6 +172,19 @@ def test_intersect_kernel(cuda, m, n, rng):
     want = ops.intersect_sorted(on("cpu", a), on("cpu", b))
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("name", INTERSECT_HARD)
+def test_intersect_kernel_hard_cases(cuda, name, rng):
+    """The bucket directory's hard cases: kernel against its plain version
+    and numpy's searchsorted, exactly."""
+    a, b = intersect_hard_case(name, rng)
+    assert_kernel_matches_plain(intersect, "intersect", on(cuda, a), on(cuda, b))
+    mask, pos = intersect.intersect(on(cuda, a), on(cuda, b))
+    want = np.searchsorted(b, a)
+    hit = (want < len(b)) & (b[np.minimum(want, len(b) - 1)] == a)
+    np.testing.assert_array_equal(mask.cpu().numpy(), hit)
+    np.testing.assert_array_equal(pos.cpu().numpy(), np.where(hit, want, -1))
 
 
 def test_lex_searchsorted_on_card(cuda, rng):

@@ -18,6 +18,7 @@ from repro.kernels.hash_probe import QBLK, hash_probe_pallas
 from repro.kernels.hash_probe import mix32 as jmix32
 from repro.kernels.radix_sort import radix_rank_pallas
 from repro_torch.kernels import compact, csr_expand, hash_probe, intersect, ops, radix_sort, ref
+from test_torch_cuda import INTERSECT_HARD, intersect_hard_case
 
 BLK = 1024  # the Pallas kernels' output block (OBLK/CBLK)
 
@@ -227,13 +228,19 @@ def intersect_case(rng, m, n):
     return a, b
 
 
-@pytest.mark.parametrize("m,n", [(1, 1), (100, 37), (1000, 999), (1025, 500), (0, 50), (40, 0)])
-def test_intersect_vs_pallas(m, n, rng):
+@pytest.mark.parametrize("m,n,hard", [
+    *(pytest.param(m, n, None, id=f"{m}-{n}")
+      for m, n in [(1, 1), (100, 37), (1000, 999), (1025, 500), (0, 50), (40, 0)]),
+    *(pytest.param(0, 0, name, id=name) for name in INTERSECT_HARD),
+])
+def test_intersect_vs_pallas(m, n, hard, rng):
     """K5's plain version (through ops.intersect_sorted) against the Pallas
     kernel in interpret mode and both brute-force oracles; Q = 1025 is not
     a multiple of the Pallas block, and m = 0 / n = 0 take the empty
-    shortcut of ops.intersect_sorted."""
-    a, b = intersect_case(rng, m, n)
+    shortcut of ops.intersect_sorted. `hard` names one of the bucket
+    directory's hard cases (test_torch_cuda.intersect_hard_case)."""
+    a, b = intersect_case(rng, m, n) if hard is None else intersect_hard_case(hard, rng)
+    m, n = len(a), len(b)
     wm, wp = jops.intersect_sorted(jnp.asarray(a), jnp.asarray(b), impl="pallas_interpret")
     gm, gp = ops.intersect_sorted(t32(a), t32(b))
     assert gm.dtype == torch.bool and gp.dtype == torch.int32
@@ -259,6 +266,18 @@ def test_intersect_edge_keys():
     gm, gp = intersect.intersect(t32([6, 7, 8]), t32([7]))
     np.testing.assert_array_equal(gm.numpy(), [False, True, False])
     np.testing.assert_array_equal(gp.numpy(), [-1, 0, -1])
+
+
+@pytest.mark.parametrize("n,r", [(1, 1), (2, 1), (3, 2), (4, 2), (5, 3), (39_932, 13),
+                                 (1 << 13, 13), ((1 << 13) + 1, 13), (2_097_152, 13)])
+def test_intersect_directory_bits(n, r):
+    """2^r buckets for N keys: the power of two at or above N, at least 2,
+    at most 2^MAX_DIRECTORY_BITS; the directory holds 2^r + 1 entries,
+    padded to a multiple of 4."""
+    assert intersect.MAX_DIRECTORY_BITS == 13
+    assert intersect.directory_bits(n) == r
+    entries = intersect.directory_entries(r)
+    assert entries % 4 == 0 and (1 << r) + 1 <= entries < (1 << r) + 5
 
 
 # ---- lex_searchsorted (the delta merge's rank) ------------------------------------
