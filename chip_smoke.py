@@ -973,8 +973,9 @@ def main(argv=None) -> int:
             print(f"build: {name}: {fn}: {line}")
     from repro_torch.kernels import intersect
 
-    print("build: intersect: search_kernel's directory is dynamic shared memory, up to "
-          f"{4 * intersect.directory_entries(intersect.MAX_DIRECTORY_BITS)} bytes a block")
+    print("build: intersect: search_kernel's directory and occupancy words are dynamic shared "
+          f"memory, up to {4 * intersect.directory_words(intersect.MAX_DIRECTORY_BITS)} bytes "
+          "a block")
 
     mods = kernel_modules()
 

@@ -8,69 +8,63 @@
 // pos[i] = lo where mask[i] is set, else -1.
 //
 // What bounds it on the H100: the function moves 9 bytes a query (a read,
-// mask and pos written, coalesced) and 4 a key. A plain binary search over
-// b adds log2(n) dependent loads a query at data-dependent addresses; with
-// b in L2 that chain of L2 round trips, not the bytes, sets the time.
+// mask and pos written, coalesced) and 4 a key. A binary search over all
+// of b adds log2(n) dependent loads a query at scattered addresses; those
+// loads, each a 32-byte sector through L1 or from L2, not the bytes, set
+// the time of a one-thread-a-query search.
 //
-// What the design does about it: a bucket directory replaces the upper
-// levels of the search with one lookup in shared memory.
-//   - Buckets: with 2^r buckets (r from n, on the host: about one bucket a
-//     key, at most 2^kMaxDirBits), s the smallest shift with
-//     (b[n-1] - b[0]) >> s < 2^r, and bucket(x) = uint32(x - b[0]) >> s,
-//     computed in 32-bit unsigned arithmetic so that a b spanning the whole
-//     int32 range does not overflow. b is duplicate-free, so a bucket
-//     2^s ids wide holds at most 2^s keys.
-//   - dir[u] is the first i with bucket(b[i]) >= u, and dir[2^r] = n (the
-//     directory is padded with n to a multiple of 4 entries). A key in
+// What the design does about it:
+//   - A bucket directory over b's key range replaces the upper levels of
+//     the search with one lookup in shared memory. With 2^r buckets (r
+//     from n on the host: about one bucket a key, at most 2^kMaxDirBits)
+//     and s the smallest shift with (b[n-1] - b[0]) >> s < 2^r,
+//     bucket(x) = uint32(x - b[0]) >> s; 32-bit unsigned arithmetic, so
+//     a b over the whole int32 range does not overflow. dir[u] is the
+//     first i with bucket(b[i]) >= u, dir[2^r] = n. A key in
 //     [b[0], b[n-1]] has its lower bound in [dir[u], dir[u+1]] for
 //     u = bucket(key); keys outside that range miss at 0 or n.
-//   - A pre-pass with one thread per element of b builds the directory:
-//     thread i writes dir[u] = i for u in (bucket(b[i-1]), bucket(b[i])],
-//     thread n the entries after the last key's bucket. Every entry is
-//     written exactly once, no atomics; b[0] and b[n-1] are read on the
-//     device, so the host never syncs.
-//   - The search kernel runs a persistent grid of kBlocksPerSM blocks an
-//     SM. Each block copies the directory into shared memory with one TMA
-//     bulk copy (tma.cuh), then its threads walk the queries kVQ at a time,
-//     the kVQ searches interleaved so that their loads of b overlap. A
-//     search runs inside the bucket only, for at most min(s, log2 n)
-//     steps, in b through L1 and L2; it tracks whether b at its upper end
+//   - Where buckets are at most 32 ids wide (s <= 5: keys dense in their
+//     range, as person ids are), each also carries an occupancy word, bit
+//     t set when b[0] + (u << s) + t is a key. A query is then two
+//     shared-memory loads: mask from the bit, pos = dir[u] plus the set
+//     bits below it; b is not read at all. Wider buckets are searched in
+//     b (through L1 and L2) between dir[u] and dir[u+1], at most
+//     min(s, log2 n) steps; the search tracks whether b at its upper end
 //     equals the key, so no further load decides membership.
-//   - Thread g of the grid takes queries g, g + P, g + 2P, ... (P threads
-//     in all): reads of a and writes of mask and pos stay coalesced, and
-//     the threads' shares differ by at most one query.
+//   - A pre-pass kernel with one thread per key builds both, every entry
+//     written exactly once and no atomics: thread i writes dir[u] = i for
+//     u in (bucket(b[i-1]), bucket(b[i])] and the word of its bucket if it
+//     is the bucket's first key; the entries after the last key's bucket
+//     are spread over all threads. b[0] and b[n-1] are read on the
+//     device, so the host never syncs.
+//   - The search kernel runs a persistent grid, one block of 1024
+//     threads an SM. Each block copies the directory (and, when dense,
+//     the words) into shared memory with one TMA bulk copy (tma.cuh)
+//     while its threads load their first keys. Thread g of the grid takes
+//     queries g, g + P, g + 2P, ... (P threads in all), several at once so
+//     that their loads overlap: reads of a and writes of mask and pos stay
+//     coalesced, and the threads' shares differ by at most one query.
 #include <algorithm>
 
 #include "common.cuh"
 #include "tma.cuh"
-#ifdef REPRO_K5_COOPERATIVE
-#include <cooperative_groups.h>
-#endif
-
-// Design alternatives, timed on the card by tools/intersect_variants.py.
-#ifndef REPRO_K5_THREADS
-#define REPRO_K5_THREADS 512
-#endif
-#ifndef REPRO_K5_VQ
-#define REPRO_K5_VQ 4
-#endif
-#ifndef REPRO_K5_BLOCKS_PER_SM
-#define REPRO_K5_BLOCKS_PER_SM 2
-#endif
-#ifndef REPRO_K5_MAX_DIR_BITS
-#define REPRO_K5_MAX_DIR_BITS 14
-#endif
 
 namespace {
 
-constexpr int kSearchThreads = REPRO_K5_THREADS;
-constexpr int kVQ = REPRO_K5_VQ;  // queries a thread searches at once
-constexpr int kBlocksPerSM = REPRO_K5_BLOCKS_PER_SM;
-constexpr int kMaxDirBits = REPRO_K5_MAX_DIR_BITS;
+constexpr int kSearchThreads = 1024;  // one block an SM
+#ifndef REPRO_K5_DENSE_VQ
+#define REPRO_K5_DENSE_VQ 8
+#endif
+constexpr int kDenseVQ = REPRO_K5_DENSE_VQ;  // queries a thread takes at once, bit lookups
+constexpr int kSearchVQ = 2;          // and searches
+constexpr int kMaxDirBits = 14;
+constexpr int kDenseShift = 5;        // buckets of at most 32 ids carry an occupancy word
 
 // Directory entries for 2^r buckets: 2^r + 1, padded to a multiple of 4
-// (a TMA copy moves a multiple of 16 bytes).
-constexpr int dir_entries(int r) { return ((1 << r) + 1 + 3) & ~3; }
+// (a TMA copy moves a multiple of 16 bytes); then the occupancy words,
+// one a bucket, padded the same way.
+__host__ __device__ constexpr int dir_entries(int r) { return ((1 << r) + 1 + 3) & ~3; }
+__host__ __device__ constexpr int occ_words(int r) { return ((1 << r) + 3) & ~3; }
 
 struct Keys {  // b's key range and the directory's bucket shift
   int32_t b0, bl;
@@ -86,111 +80,173 @@ __device__ __forceinline__ Keys key_range(const int32_t* __restrict__ b, int n, 
   return k;
 }
 
-// The bucket of x, for b[0] <= x <= b[n-1]: below 2^r.
-__device__ __forceinline__ int bucket(int32_t x, const Keys& k) {
-  return static_cast<int>((static_cast<uint32_t>(x) - static_cast<uint32_t>(k.b0)) >> k.s);
+// x - b[0] as an unsigned offset, for b[0] <= x <= b[n-1].
+__device__ __forceinline__ uint32_t offset(int32_t x, const Keys& k) {
+  return static_cast<uint32_t>(x) - static_cast<uint32_t>(k.b0);
 }
 
-// This thread's share of the directory: for elements i = first, first +
-// stride, ... of b, the entries (bucket(b[i-1]), bucket(b[i])]; then, as
-// entries first, first + stride, ... after the last key's bucket, n.
-__device__ __forceinline__ void fill_directory(const int32_t* __restrict__ b, int n,
-                                               const Keys& k, int entries,
-                                               int32_t* __restrict__ dir, long long first,
-                                               long long stride) {
+// The bucket of x, for b[0] <= x <= b[n-1]: below 2^r.
+__device__ __forceinline__ int bucket(int32_t x, const Keys& k) {
+  return static_cast<int>(offset(x, k) >> k.s);
+}
+
+// The pre-pass, one thread per element of b: thread i writes dir[u] = i
+// for u in (bucket(b[i-1]), bucket(b[i])]; where buckets are dense, the
+// empty buckets among them get occupancy 0 and the first key of a bucket
+// gathers the bucket's keys (at most 32, neighbours of b[i]) into its
+// word. The last key's thread writes dir[last + 1] = n, last = bucket(b[n-1]).
+// Every entry up to there is written exactly once; the search reads no
+// entry beyond it.
+__global__ void directory_kernel(const int32_t* __restrict__ b, int n, int r,
+                                 int32_t* __restrict__ dir) {
+  const Keys k = key_range(b, n, r);
+  const int entries = dir_entries(r);
+  const bool dense = k.s <= kDenseShift;
+  uint32_t* __restrict__ occ = reinterpret_cast<uint32_t*>(dir + entries);
+  const long long first = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long i = first; i < n; i += stride) {
     const int hi = bucket(__ldg(b + i), k);
     const int lo = i == 0 ? -1 : bucket(__ldg(b + i - 1), k);
     for (int u = lo + 1; u <= hi; ++u) dir[u] = static_cast<int32_t>(i);
+    if (dense && hi > lo) {
+      for (int u = lo + 1; u < hi; ++u) occ[u] = 0;
+      uint32_t word = 0;
+      for (long long j = i; j < n; j += 4) {  // the bucket's keys, 4 loads at a time
+        int32_t x[4];
+#pragma unroll
+        for (int t = 0; t < 4; ++t) x[t] = j + t < n ? __ldg(b + j + t) : k.bl;
+        bool more = true;
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          more = more && j + t < n && bucket(x[t], k) == hi;
+          if (more) word |= 1u << (offset(x[t], k) & ((1u << k.s) - 1));
+        }
+        if (!more) break;
+      }
+      occ[hi] = word;
+    }
+    if (i == n - 1) dir[hi + 1] = n;  // the search reads dir[u + 1], u <= hi
   }
-  for (long long u = bucket(k.bl, k) + 1 + first; u < entries; u += stride) dir[u] = n;
 }
 
-__global__ void directory_kernel(const int32_t* __restrict__ b, int n, int r, int entries,
-                                 int32_t* __restrict__ dir) {
-  const Keys k = key_range(b, n, r);
-  fill_directory(b, n, k, entries, dir, static_cast<long long>(blockIdx.x) * blockDim.x +
-                 threadIdx.x, static_cast<long long>(gridDim.x) * blockDim.x);
+// Queries i0, i0 + threads, ... (kVQ of them) into their keys; a query
+// past q gets b[0] and is not written.
+template <int kVQ>
+__device__ __forceinline__ void load_keys(const int32_t* __restrict__ a, long long i0,
+                                          long long threads, int q, const Keys& k,
+                                          int32_t (&key)[kVQ]) {
+#pragma unroll
+  for (int j = 0; j < kVQ; ++j) {
+    const long long i = i0 + j * threads;
+    key[j] = i < q ? __ldg(a + i) : k.b0;
+  }
+}
+
+template <int kVQ>
+__device__ __forceinline__ void store(uint8_t* __restrict__ mask, int32_t* __restrict__ pos,
+                                      long long i0, long long threads, int q,
+                                      const bool (&hit)[kVQ], const int (&at)[kVQ]) {
+#pragma unroll
+  for (int j = 0; j < kVQ; ++j) {
+    const long long i = i0 + j * threads;
+    if (i < q) {
+      mask[i] = hit[j] ? 1 : 0;
+      pos[i] = hit[j] ? at[j] : -1;
+    }
+  }
 }
 
 __global__ void __launch_bounds__(kSearchThreads)
     search_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
-                  int32_t* dir_g, uint8_t* __restrict__ mask, int32_t* __restrict__ pos,
-                  int q, int n, int r, int entries) {
-  const long long threads = static_cast<long long>(gridDim.x) * kSearchThreads;
-  const long long g = static_cast<long long>(blockIdx.x) * kSearchThreads + threadIdx.x;
-  const Keys k = key_range(b, n, r);
-#ifdef REPRO_K5_COOPERATIVE
-  fill_directory(b, n, k, entries, dir_g, g, threads);
-  cooperative_groups::this_grid().sync();
-#endif
-#ifdef REPRO_K5_PREFETCH
-  int32_t next[kVQ];  // the keys of this thread's next round
-#pragma unroll
-  for (int j = 0; j < kVQ; ++j) {
-    const long long i = g + j * threads;
-    next[j] = i < q ? __ldg(a + i) : k.b0;
-  }
-#endif
-#ifdef REPRO_K5_DIR_IN_L2
-  const int32_t* dir = dir_g;
-#else
-  extern __shared__ __align__(16) int32_t dir_s[];
+                  const int32_t* __restrict__ dir_g, uint8_t* __restrict__ mask,
+                  int32_t* __restrict__ pos, int q, int n, int r) {
+  extern __shared__ __align__(16) int32_t dir[];  // dir_entries(r), then occ_words(r)
   __shared__ uint64_t bar;
+  const Keys k = key_range(b, n, r);
+  const bool dense = k.s <= kDenseShift;
+  const int entries = dir_entries(r);
+#ifdef REPRO_K5_DIR_IN_L2
+  (void)bar;
+  const int32_t* dir_s = dir_g;
+#define K5_DIR(u) __ldg(dir_s + (u))
+#define K5_OCC(u) __ldg(occ + (u))
+#else
+  // Only the buckets up to the last key's: entries [0, last + 2) of the
+  // directory and words [0, last + 1), rounded up to 16-byte granules.
+  const int last = bucket(k.bl, k);
   if (threadIdx.x == 0) {
-#ifdef REPRO_K5_COOPERATIVE
-    asm volatile("fence.proxy.async.global;" ::: "memory");  // other blocks' stores, then TMA
-#endif
+    const uint32_t dir_bytes = 4u * min(entries, (last + 2 + 3) & ~3);
+    const uint32_t occ_bytes = dense ? 4u * min(occ_words(r), (last + 1 + 3) & ~3) : 0u;
     tma::init(&bar);
-    tma::expect(&bar, entries * 4u);
-    tma::copy(dir_s, dir_g, entries * 4u, &bar);
+    tma::expect(&bar, dir_bytes + occ_bytes);
+    tma::copy(dir, dir_g, dir_bytes, &bar);
+    if (dense) tma::copy(dir + entries, dir_g + entries, occ_bytes, &bar);
   }
   __syncthreads();  // the barrier is initialised before anyone waits on it
-  tma::wait(&bar);
-  const int32_t* dir = dir_s;
+  const int32_t* dir_s = dir;
+#define K5_DIR(u) dir_s[u]
+#define K5_OCC(u) occ[u]
 #endif
-
-  for (long long i0 = g; i0 < q; i0 += kVQ * threads) {
-    int32_t key[kVQ];
-    int lo[kVQ], hi[kVQ];
-    bool eq[kVQ];  // b[hi] == key, where hi was set by the search
+  const long long threads = static_cast<long long>(gridDim.x) * kSearchThreads;
+  const long long g = static_cast<long long>(blockIdx.x) * kSearchThreads + threadIdx.x;
+  if (dense) {
+    // A bucket is at most 32 ids wide: bit t of its occupancy word is
+    // set when b[0] + (u << s) + t is a key, and the key's position is
+    // dir[u] plus the set bits below t. No load of b.
+    const uint32_t* occ = reinterpret_cast<const uint32_t*>(dir_s + entries);
+    const uint32_t low = (1u << k.s) - 1;
+    int32_t key[kDenseVQ];
+    load_keys(a, g, threads, q, k, key);  // the first keys arrive during the copy
+#ifndef REPRO_K5_DIR_IN_L2
+    tma::wait(&bar);
+#endif
+    for (long long i0 = g; i0 < q; i0 += kDenseVQ * threads) {
+      if (i0 != g) load_keys(a, i0, threads, q, k, key);
+      bool hit[kDenseVQ];
+      int at[kDenseVQ];
 #pragma unroll
-    for (int j = 0; j < kVQ; ++j) {
-#ifdef REPRO_K5_PREFETCH
-      key[j] = next[j];
-      const long long i = i0 + (kVQ + j) * threads;
-      next[j] = i < q ? __ldg(a + i) : k.b0;
-#else
-      const long long i = i0 + j * threads;
-      key[j] = i < q ? __ldg(a + i) : k.b0;
-#endif
+      for (int j = 0; j < kDenseVQ; ++j) {
+        const bool in = key[j] >= k.b0 && key[j] <= k.bl;
+        const int u = in ? bucket(key[j], k) : 0;
+        const uint32_t t = offset(key[j], k) & low;
+        const uint32_t word = K5_OCC(u);
+        hit[j] = in && ((word >> t) & 1u);
+        at[j] = K5_DIR(u) + __popc(word & ((1u << t) - 1u));
+      }
+      store(mask, pos, i0, threads, q, hit, at);
     }
-#pragma unroll
-    for (int j = 0; j < kVQ; ++j) {
-      const bool in = i0 + j * threads < q && key[j] >= k.b0 && key[j] <= k.bl;
-      const int u = in ? bucket(key[j], k) : 0;
-#ifdef REPRO_K5_DIR_IN_L2
-      const int d0 = __ldg(dir + u), d1 = __ldg(dir + u + 1);
-#else
-      const int d0 = dir[u], d1 = dir[u + 1];
+    return;
+  }
+#ifndef REPRO_K5_DIR_IN_L2
+  tma::wait(&bar);
 #endif
+  for (long long i0 = g; i0 < q; i0 += kSearchVQ * threads) {
+    int32_t key[kSearchVQ];
+    load_keys(a, i0, threads, q, k, key);
+    int lo[kSearchVQ], hi[kSearchVQ];
+    bool eq[kSearchVQ];  // b[hi] == key, where hi was set by the search
+#pragma unroll
+    for (int j = 0; j < kSearchVQ; ++j) {
+      const bool in = key[j] >= k.b0 && key[j] <= k.bl;
+      const int u = in ? bucket(key[j], k) : 0;
+      const int d0 = K5_DIR(u), d1 = K5_DIR(u + 1);
       lo[j] = in ? d0 : (key[j] > k.bl ? n : 0);
       hi[j] = in ? d1 : lo[j];
       eq[j] = false;
     }
-#ifndef REPRO_K5_NO_SEARCH
     // The lower bound lies in [lo, hi]: below dir[u] every key is in an
     // earlier bucket (smaller), from dir[u + 1] on in a later one (larger).
     for (bool open = true; open;) {
-      int32_t v[kVQ];
+      int32_t v[kSearchVQ];
 #pragma unroll
-      for (int j = 0; j < kVQ; ++j) {  // the kVQ loads, issued together
+      for (int j = 0; j < kSearchVQ; ++j) {  // the loads, issued together
         const int mid = static_cast<int>((static_cast<uint32_t>(lo[j]) + hi[j]) >> 1);
         v[j] = lo[j] < hi[j] ? __ldg(b + mid) : 0;
       }
       open = false;
 #pragma unroll
-      for (int j = 0; j < kVQ; ++j) {
+      for (int j = 0; j < kSearchVQ; ++j) {
         if (lo[j] < hi[j]) {
           const int mid = static_cast<int>((static_cast<uint32_t>(lo[j]) + hi[j]) >> 1);
           if (v[j] < key[j]) {
@@ -203,55 +259,40 @@ __global__ void __launch_bounds__(kSearchThreads)
         open |= lo[j] < hi[j];
       }
     }
-#endif
     // A bound the search never lowered is dir[u + 1], a key of a later
     // bucket (or n): eq stays false, a miss.
-#pragma unroll
-    for (int j = 0; j < kVQ; ++j) {
-      const long long i = i0 + j * threads;
-      if (i < q) {
-        mask[i] = eq[j] ? 1 : 0;
-        pos[i] = eq[j] ? lo[j] : -1;
-      }
-    }
+    store(mask, pos, i0, threads, q, eq, lo);
   }
 }
 
 #ifdef REPRO_K5_DIR_IN_L2
 constexpr size_t kMaxSmem = 0;
 #else
-constexpr size_t kMaxSmem = dir_entries(kMaxDirBits) * sizeof(int32_t);
+constexpr size_t kMaxSmem = (dir_entries(kMaxDirBits) + occ_words(kMaxDirBits)) * sizeof(int32_t);
 #endif
 
-// Blocks of the persistent grid on device `dev`: kBlocksPerSM an SM, or
-// fewer if the largest directory does not fit; raises the kernel's
-// dynamic shared memory limit on first use.
+// Blocks of the persistent grid on device `dev`: one an SM (fewer if the
+// largest directory does not fit); raises the kernel's dynamic shared
+// memory limit on first use.
 int grid_cap(int dev) {
   static int cap[64];
   if (dev < 0 || dev >= 64) return 0;
   if (cap[dev] == 0) {
     int sms = 0, per_sm = 0;
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (kMaxSmem > 48 * 1024) {
-      cudaFuncSetAttribute(search_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(kMaxSmem));
-    }
-#ifdef REPRO_K5_CARVEOUT
-    // the least shared memory kBlocksPerSM blocks need, the rest L1 for b
-    const size_t need = kBlocksPerSM * (kMaxSmem + 16 + 1024);
-    cudaFuncSetAttribute(search_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                         static_cast<int>((need * 100 + 228 * 1024 - 1) / (228 * 1024)));
-#endif
+    cudaFuncSetAttribute(search_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(kMaxSmem));
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, search_kernel, kSearchThreads,
                                                   kMaxSmem);
-    cap[dev] = sms * std::min(per_sm, kBlocksPerSM);
+    cap[dev] = per_sm > 0 ? sms : 0;
   }
   return cap[dev];
 }
 
 }  // namespace
 
-// dir: scratch of dir_entries(r) int32, allocated by the caller.
+// dir: scratch of dir_entries(r) + occ_words(r) int32, allocated by the
+// caller; 1 <= r <= kMaxDirBits.
 REPRO_EXPORT int intersect_launch(const void* a, const void* b, void* mask, void* pos, void* dir,
                                   int q, int n, int r, void* stream) {
   if (q <= 0) return static_cast<int>(cudaGetLastError());
@@ -261,26 +302,17 @@ REPRO_EXPORT int intersect_launch(const void* a, const void* b, void* mask, void
   const long long want = (q + static_cast<long long>(kSearchThreads) - 1) / kSearchThreads;
   const unsigned int blocks =
       static_cast<unsigned int>(std::min(want, static_cast<long long>(grid_cap(dev))));
-  const int entries = dir_entries(r);
 #ifdef REPRO_K5_DIR_IN_L2
   const size_t smem = 0;
 #else
-  const size_t smem = entries * sizeof(int32_t);
+  const size_t smem = (dir_entries(r) + occ_words(r)) * sizeof(int32_t);
 #endif
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int32_t* a32 = static_cast<const int32_t*>(a);
   const int32_t* b32 = static_cast<const int32_t*>(b);
   int32_t* dir32 = static_cast<int32_t*>(dir);
-  uint8_t* mask8 = static_cast<uint8_t*>(mask);
-  int32_t* pos32 = static_cast<int32_t*>(pos);
-#ifdef REPRO_K5_COOPERATIVE
-  void* args[] = {&a32, &b32, &dir32, &mask8, &pos32, &q, &n, &r, const_cast<int*>(&entries)};
-  cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(search_kernel), blocks, kSearchThreads,
-                              args, smem, st);
-#else
-  directory_kernel<<<grid_for(n), kThreads, 0, st>>>(b32, n, r, entries, dir32);
-  search_kernel<<<blocks, kSearchThreads, smem, st>>>(a32, b32, dir32, mask8, pos32, q, n, r,
-                                                      entries);
-#endif
+  directory_kernel<<<grid_for(n), kThreads, 0, st>>>(b32, n, r, dir32);
+  search_kernel<<<blocks, kSearchThreads, smem, st>>>(
+      static_cast<const int32_t*>(a), b32, dir32, static_cast<uint8_t*>(mask),
+      static_cast<int32_t*>(pos), q, n, r);
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,9 +11,11 @@ holds a[i].
 `intersect` launches the CUDA kernel for tensors on the card and runs
 `intersect_plain`, the same search written with tensor operations, for
 tensors on the CPU. On the card a bucket directory over b's key range
-(2^r buckets, `directory_bits`) narrows each search to one bucket first;
-the wrapper allocates it as scratch. `launches` counts wrapper calls that
-launch the kernel.
+(2^r buckets, `directory_bits`) narrows each search to one bucket, or,
+where buckets are at most 32 ids wide, answers from an occupancy word a
+bucket without a search; the wrapper allocates both as scratch
+(`directory_words`). `launches` counts wrapper calls that launch the
+kernel.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ import torch
 from repro_torch.kernels import _build
 
 launches = 0
-MAX_DIRECTORY_BITS = 13  # at most 2^13 buckets: a 32 KB directory (csrc: kMaxDirBits >= this)
+MAX_DIRECTORY_BITS = 14  # at most 2^14 buckets (csrc/intersect.cu kMaxDirBits)
 
 
 def directory_bits(n: int) -> int:
@@ -31,10 +33,11 @@ def directory_bits(n: int) -> int:
     return min(max(1, (n - 1).bit_length()), MAX_DIRECTORY_BITS)
 
 
-def directory_entries(r: int) -> int:
-    """The directory's int32 entries for 2^r buckets: 2^r + 1, padded to a
-    multiple of 4 (its copy into shared memory moves 16-byte granules)."""
-    return ((1 << r) + 1 + 3) // 4 * 4
+def directory_words(r: int) -> int:
+    """int32 words of the kernel's scratch for 2^r buckets: the directory,
+    2^r + 1 entries, and an occupancy word a bucket, each padded to a
+    multiple of 4 (the copy into shared memory moves 16-byte granules)."""
+    return ((1 << r) + 1 + 3) // 4 * 4 + ((1 << r) + 3) // 4 * 4
 
 
 def intersect_plain(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -67,7 +70,7 @@ def intersect(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Ten
     mask = torch.empty(q, dtype=torch.bool, device=device)
     pos = torch.empty(q, dtype=torch.int32, device=device)
     r = directory_bits(b.shape[0])
-    scratch = torch.empty(directory_entries(r), dtype=torch.int32, device=device)
+    scratch = torch.empty(directory_words(r), dtype=torch.int32, device=device)
     _build.launch("intersect", device, a, b, mask, pos, scratch, q, b.shape[0], r)
     launches += 1
     return mask, pos

@@ -268,16 +268,17 @@ def test_intersect_edge_keys():
     np.testing.assert_array_equal(gp.numpy(), [-1, 0, -1])
 
 
-@pytest.mark.parametrize("n,r", [(1, 1), (2, 1), (3, 2), (4, 2), (5, 3), (39_932, 13),
-                                 (1 << 13, 13), ((1 << 13) + 1, 13), (2_097_152, 13)])
+@pytest.mark.parametrize("n,r", [(1, 1), (2, 1), (3, 2), (4, 2), (5, 3), (39_932, 16),
+                                 (1 << 14, 14), ((1 << 14) + 1, 15), (2_097_152, 21)])
 def test_intersect_directory_bits(n, r):
     """2^r buckets for N keys: the power of two at or above N, at least 2,
-    at most 2^MAX_DIRECTORY_BITS; the directory holds 2^r + 1 entries,
-    padded to a multiple of 4."""
-    assert intersect.MAX_DIRECTORY_BITS == 13
+    at most 2^MAX_DIRECTORY_BITS. The kernel's scratch holds 2^r + 1
+    directory entries and 2^r occupancy words, each padded to a multiple
+    of 4."""
+    r = min(r, intersect.MAX_DIRECTORY_BITS)
     assert intersect.directory_bits(n) == r
-    entries = intersect.directory_entries(r)
-    assert entries % 4 == 0 and (1 << r) + 1 <= entries < (1 << r) + 5
+    words = intersect.directory_words(r)
+    assert words % 4 == 0 and 2 * (1 << r) + 1 <= words <= 2 * (1 << r) + 8
 
 
 # ---- lex_searchsorted (the delta merge's rank) ------------------------------------

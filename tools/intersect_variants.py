@@ -1,23 +1,19 @@
 #!/usr/bin/env python3
-"""K5's design alternatives on one NVIDIA GPU, timed in turns.
+"""K5 against another tree's K5 on one NVIDIA GPU, timed in turns.
 
 Run from the repository root:
     python3 tools/intersect_variants.py [--parent DIR] [--seed 0]
 
-Builds src/repro_torch/kernels/csrc/intersect.cu three ways: two launches
-with the directory in shared memory (the default build), one cooperative
-launch with a grid-wide barrier between the directory's build and the
-search (-DREPRO_K5_COOPERATIVE), and two launches with the directory read
-from L1/L2 through __ldg (-DREPRO_K5_DIR_IN_L2); each runs with a 32 KB
-(2^13 buckets) and a 64 KB (2^14) directory. With --parent DIR it also
-builds DIR's intersect.cu, the kernel of another tree (the older C
-interface: one thread a query, binary search over all of b). Every build
-is held exact against numpy's searchsorted on K5's three shapes
-(chip_smoke.py: knows at LSQB SF 10, the reference's kern.intersect.100k,
-large N) and on chip_smoke.py's K5 edge cases, then timed with
-torch.profiler (device time of all kernels of a call, summed), in turns
-forward and backward. Prints one `variant:` JSON line per build and shape,
-then the card's name and power limit.
+Builds src/repro_torch/kernels/csrc/intersect.cu and, with --parent DIR,
+DIR's intersect.cu (another tree's kernel and its C interface: one thread
+a query, binary search over all of b). Each is held exact against numpy's
+searchsorted on K5's three shapes (chip_smoke.py: knows at LSQB SF 10, the
+reference's kern.intersect.100k, large N) and on chip_smoke.py's K5 edge
+cases, then timed with torch.profiler (device time of each kernel of a
+call, summed), in turns forward and backward. Prints one `variant:` JSON
+line per build and shape, then the card's name and power limit. (At
+commit 96660e3 the same script also built the design's alternatives,
+selected by -DREPRO_K5_* flags that intersect.cu no longer has.)
 """
 from __future__ import annotations
 
@@ -36,26 +32,11 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import chip_smoke  # noqa: E402
 
-def flags(threads=512, blocks=2, vq=4, bits=13, *extra):
-    return (f"-DREPRO_K5_THREADS={threads}", f"-DREPRO_K5_BLOCKS_PER_SM={blocks}",
-            f"-DREPRO_K5_VQ={vq}", f"-DREPRO_K5_MAX_DIR_BITS={bits}",
-            *(f"-DREPRO_K5_{e}" for e in extra))
-
-
 VARIANTS = {  # name: (extra nvcc flags, directory bits)
-    "smem_t512x2_vq4": (flags(), 13),
-    "smem_t512x2_vq4_carve": (flags(512, 2, 4, 13, "CARVEOUT"), 13),
-    "smem_t1024x1_vq4": (flags(1024, 1), 13),
-    "smem_t1024x1_vq4_carve": (flags(1024, 1, 4, 13, "CARVEOUT"), 13),
-    "smem_t1024x1_vq2": (flags(1024, 1, 2), 13),
-    "smem_t1024x1_vq8": (flags(1024, 1, 8), 13),
-    "smem_t1024x1_vq4_prefetch": (flags(1024, 1, 4, 13, "PREFETCH"), 13),
-    "smem_t1024x1_vq4_64k": (flags(1024, 1, 4, 14), 14),
-    "l2_t1024x1_vq4": (flags(1024, 1, 4, 13, "DIR_IN_L2"), 13),
-    "l2_t512x4_vq4": (flags(512, 4, 4, 13, "DIR_IN_L2"), 13),
-    "coop_t1024x1_vq4": (flags(1024, 1, 4, 13, "COOPERATIVE"), 13),
-    # diagnostic, not a result: the directory lookup without the search
-    "nosearch_t1024x1_vq4": (flags(1024, 1, 4, 13, "NO_SEARCH"), 13),
+    "shipped": ((), 14),
+    "dense_vq4": (("-DREPRO_K5_DENSE_VQ=4",), 14),
+    "dense_vq16": (("-DREPRO_K5_DENSE_VQ=16",), 14),
+    "dir_in_l2": (("-DREPRO_K5_DIR_IN_L2",), 14),
 }
 
 
@@ -110,7 +91,7 @@ def caller(lib, new_abi: bool, bits: int):
         stream = torch.cuda.current_stream().cuda_stream
         if new_abi:
             r = min(max(1, (n - 1).bit_length()), bits)
-            scratch = torch.empty(intersect.directory_entries(r), dtype=torch.int32,
+            scratch = torch.empty(intersect.directory_words(r), dtype=torch.int32,
                                   device=a.device)
             rc = fn(a.data_ptr(), b.data_ptr(), mask.data_ptr(), pos.data_ptr(),
                     scratch.data_ptr(), q, n, r, stream)
@@ -165,8 +146,6 @@ def main(argv=None) -> int:
     shapes.update(chip_smoke.intersect_shapes(args.seed, device))
     cases = chip_smoke.edge_cases(device)["intersect"]
     for name, call in calls.items():
-        if name.startswith("nosearch"):
-            continue
         for i, (a, b) in enumerate(list(shapes.values()) + cases):
             got = call(a, b)
             want = chip_smoke.intersect_numpy(a.cpu().numpy(), b.cpu().numpy())
