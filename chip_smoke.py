@@ -47,7 +47,8 @@ Phases (any failure raises, and the script exits non-zero):
      tiled merge gets wrong: a hub row over 100,000 slots, 50,000 empty
      rows or dead lanes in a row, total or live above the capacity; for
      K5 the bucket directory's: b over the whole int32 range, N = 1 and 2,
-     a dense run with one far outlier, queries at b[0] and b[N-1], Q = 1).
+     a dense run with one far outlier, 300,000 consecutive keys, queries
+     at b[0] and b[N-1], Q = 1).
      K5 also on its two other shapes: the reference's kern.intersect.100k
      (100,000 sorted queries into the distinct keys of 100,000 draws from
      [0, 2^30)) and large N (4,194,304 queries, half members, into
@@ -682,6 +683,7 @@ def edge_cases(device):
                            rng.integers(lo32, hi32, 4099), [lo32, hi32, 0, -1]])), t(full)),
         (t(np.concatenate([rng.integers(0, 60_000, 5000), [hi32, hi32 - 1, 1000, 50_999,
                                                             51_000]])), t(dense)),
+        (t(np.arange(0, 300_100, 3)), t(np.arange(17, 300_017))),  # full 32-id buckets
         (t([b[0], b[-1], b[0] - 1, b[-1] + 1, b[-1], b[0]]), t(b)),  # at b[0] and b[N-1]
         (t([b[17]]), t(b)),  # Q = 1
     ]
@@ -973,9 +975,8 @@ def main(argv=None) -> int:
             print(f"build: {name}: {fn}: {line}")
     from repro_torch.kernels import intersect
 
-    print("build: intersect: search_kernel's directory and occupancy words are dynamic shared "
-          f"memory, up to {4 * intersect.directory_words(intersect.MAX_DIRECTORY_BITS)} bytes "
-          "a block")
+    print("build: intersect: its directory (scratch in device memory, read through L1) takes "
+          f"up to {4 * intersect.directory_words(intersect.MAX_DIRECTORY_BITS)} bytes")
 
     mods = kernel_modules()
 

@@ -44,10 +44,9 @@
 //     queries g, g + P, g + 2P, ... (P threads in all), several at once so
 //     that their loads overlap: reads of a and writes of mask and pos stay
 //     coalesced, and the threads' shares differ by at most one query.
-#include <algorithm>
+#include <algorithm>#include <algorithm>
 
 #include "common.cuh"
-#include "tma.cuh"
 
 namespace {
 
@@ -56,15 +55,9 @@ constexpr int kSearchThreads = 1024;  // one block an SM
 #define REPRO_K5_DENSE_VQ 8
 #endif
 constexpr int kDenseVQ = REPRO_K5_DENSE_VQ;  // queries a thread takes at once, bit lookups
-constexpr int kSearchVQ = 2;          // and searches
+constexpr int kSearchVQ = 2;                 // and searches
 constexpr int kMaxDirBits = 14;
-constexpr int kDenseShift = 5;        // buckets of at most 32 ids carry an occupancy word
-
-// Directory entries for 2^r buckets: 2^r + 1, padded to a multiple of 4
-// (a TMA copy moves a multiple of 16 bytes); then the occupancy words,
-// one a bucket, padded the same way.
-__host__ __device__ constexpr int dir_entries(int r) { return ((1 << r) + 1 + 3) & ~3; }
-__host__ __device__ constexpr int occ_words(int r) { return ((1 << r) + 3) & ~3; }
+constexpr int kDenseShift = 5;  // buckets of at most 32 ids carry an occupancy word
 
 struct Keys {  // b's key range and the directory's bucket shift
   int32_t b0, bl;
@@ -90,43 +83,49 @@ __device__ __forceinline__ int bucket(int32_t x, const Keys& k) {
   return static_cast<int>(offset(x, k) >> k.s);
 }
 
-// The pre-pass, one thread per element of b: thread i writes dir[u] = i
-// for u in (bucket(b[i-1]), bucket(b[i])]; where buckets are dense, the
-// empty buckets among them get occupancy 0 and the first key of a bucket
-// gathers the bucket's keys (at most 32, neighbours of b[i]) into its
-// word. The last key's thread writes dir[last + 1] = n, last = bucket(b[n-1]).
-// Every entry up to there is written exactly once; the search reads no
-// entry beyond it.
+// x's bit in its bucket's occupancy word (dense buckets only).
+__device__ __forceinline__ uint32_t bit(int32_t x, const Keys& k) {
+  return 1u << (offset(x, k) & ((1u << k.s) - 1));
+}
+
+// The pre-pass, one thread per key: dir[u].x = the first i with
+// bucket(b[i]) >= u; dir[u].y = dir[u + 1].x where buckets are searched,
+// the bucket's occupancy word where they are dense. Thread i writes
+// dir[u].x = i for u in (bucket(b[i-1]), bucket(b[i])] and, searched, the
+// .y of the entry before each; dense, the empty buckets' words (0) and, as
+// the first key of its bucket, the bucket's word: the OR of the bits of
+// its warp's keys in the bucket and, where the bucket runs on into the
+// next warp, of those keys (at most 31 more). The last key's thread ends
+// the directory at last = bucket(b[n-1]). Every entry up to there is
+// written exactly once, without atomics; the search reads no entry beyond.
 __global__ void directory_kernel(const int32_t* __restrict__ b, int n, int r,
-                                 int32_t* __restrict__ dir) {
+                                 int2* __restrict__ dir) {
   const Keys k = key_range(b, n, r);
-  const int entries = dir_entries(r);
   const bool dense = k.s <= kDenseShift;
-  uint32_t* __restrict__ occ = reinterpret_cast<uint32_t*>(dir + entries);
-  const long long first = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = first; i < n; i += stride) {
-    const int hi = bucket(__ldg(b + i), k);
-    const int lo = i == 0 ? -1 : bucket(__ldg(b + i - 1), k);
-    for (int u = lo + 1; u <= hi; ++u) dir[u] = static_cast<int32_t>(i);
-    if (dense && hi > lo) {
-      for (int u = lo + 1; u < hi; ++u) occ[u] = 0;
-      uint32_t word = 0;
-      for (long long j = i; j < n; j += 4) {  // the bucket's keys, 4 loads at a time
-        int32_t x[4];
-#pragma unroll
-        for (int t = 0; t < 4; ++t) x[t] = j + t < n ? __ldg(b + j + t) : k.bl;
-        bool more = true;
-#pragma unroll
-        for (int t = 0; t < 4; ++t) {
-          more = more && j + t < n && bucket(x[t], k) == hi;
-          if (more) word |= 1u << (offset(x[t], k) & ((1u << k.s) - 1));
-        }
-        if (!more) break;
-      }
-      occ[hi] = word;
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const unsigned live = __ballot_sync(0xffffffffu, i < n);
+  if (i >= n) return;
+  const int32_t x = __ldg(b + i);
+  const int hi = bucket(x, k);
+  const int lo = i == 0 ? -1 : bucket(__ldg(b + i - 1), k);
+  const uint32_t word = dense ? __reduce_or_sync(__match_any_sync(live, hi), bit(x, k)) : 0u;
+  for (int u = lo + 1; u <= hi; ++u) {
+    dir[u].x = static_cast<int32_t>(i);
+    if (!dense && u > 0) dir[u - 1].y = static_cast<int32_t>(i);
+    if (dense && u < hi) dir[u].y = 0;
+  }
+  if (dense && hi > lo) {
+    uint32_t all = word;
+    for (long long j = (i | 31) + 1; j < n; ++j) {  // keys of the bucket in later warps
+      const int32_t y = __ldg(b + j);
+      if (bucket(y, k) != hi) break;
+      all |= bit(y, k);
     }
-    if (i == n - 1) dir[hi + 1] = n;  // the search reads dir[u + 1], u <= hi
+    dir[hi].y = static_cast<int32_t>(all);
+  }
+  if (i == n - 1) {
+    dir[hi + 1].x = n;
+    if (!dense) dir[hi].y = n;
   }
 }
 
@@ -159,68 +158,33 @@ __device__ __forceinline__ void store(uint8_t* __restrict__ mask, int32_t* __res
 
 __global__ void __launch_bounds__(kSearchThreads)
     search_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
-                  const int32_t* __restrict__ dir_g, uint8_t* __restrict__ mask,
+                  const int2* __restrict__ dir, uint8_t* __restrict__ mask,
                   int32_t* __restrict__ pos, int q, int n, int r) {
-  extern __shared__ __align__(16) int32_t dir[];  // dir_entries(r), then occ_words(r)
-  __shared__ uint64_t bar;
   const Keys k = key_range(b, n, r);
-  const bool dense = k.s <= kDenseShift;
-  const int entries = dir_entries(r);
-#ifdef REPRO_K5_DIR_IN_L2
-  (void)bar;
-  const int32_t* dir_s = dir_g;
-#define K5_DIR(u) __ldg(dir_s + (u))
-#define K5_OCC(u) __ldg(occ + (u))
-#else
-  // Only the buckets up to the last key's: entries [0, last + 2) of the
-  // directory and words [0, last + 1), rounded up to 16-byte granules.
-  const int last = bucket(k.bl, k);
-  if (threadIdx.x == 0) {
-    const uint32_t dir_bytes = 4u * min(entries, (last + 2 + 3) & ~3);
-    const uint32_t occ_bytes = dense ? 4u * min(occ_words(r), (last + 1 + 3) & ~3) : 0u;
-    tma::init(&bar);
-    tma::expect(&bar, dir_bytes + occ_bytes);
-    tma::copy(dir, dir_g, dir_bytes, &bar);
-    if (dense) tma::copy(dir + entries, dir_g + entries, occ_bytes, &bar);
-  }
-  __syncthreads();  // the barrier is initialised before anyone waits on it
-  const int32_t* dir_s = dir;
-#define K5_DIR(u) dir_s[u]
-#define K5_OCC(u) occ[u]
-#endif
   const long long threads = static_cast<long long>(gridDim.x) * kSearchThreads;
   const long long g = static_cast<long long>(blockIdx.x) * kSearchThreads + threadIdx.x;
-  if (dense) {
-    // A bucket is at most 32 ids wide: bit t of its occupancy word is
-    // set when b[0] + (u << s) + t is a key, and the key's position is
-    // dir[u] plus the set bits below t. No load of b.
-    const uint32_t* occ = reinterpret_cast<const uint32_t*>(dir_s + entries);
+  if (k.s <= kDenseShift) {
+    // A bucket is at most 32 ids wide: bit t of its word is set when
+    // b[0] + (u << s) + t is a key, and that key sits at dir[u].x plus
+    // the set bits below t. One 8-byte load a query; no load of b.
     const uint32_t low = (1u << k.s) - 1;
-    int32_t key[kDenseVQ];
-    load_keys(a, g, threads, q, k, key);  // the first keys arrive during the copy
-#ifndef REPRO_K5_DIR_IN_L2
-    tma::wait(&bar);
-#endif
     for (long long i0 = g; i0 < q; i0 += kDenseVQ * threads) {
-      if (i0 != g) load_keys(a, i0, threads, q, k, key);
+      int32_t key[kDenseVQ];
+      load_keys(a, i0, threads, q, k, key);
       bool hit[kDenseVQ];
       int at[kDenseVQ];
 #pragma unroll
       for (int j = 0; j < kDenseVQ; ++j) {
         const bool in = key[j] >= k.b0 && key[j] <= k.bl;
-        const int u = in ? bucket(key[j], k) : 0;
+        const int2 e = __ldg(dir + (in ? bucket(key[j], k) : 0));
         const uint32_t t = offset(key[j], k) & low;
-        const uint32_t word = K5_OCC(u);
-        hit[j] = in && ((word >> t) & 1u);
-        at[j] = K5_DIR(u) + __popc(word & ((1u << t) - 1u));
+        hit[j] = in && ((static_cast<uint32_t>(e.y) >> t) & 1u);
+        at[j] = e.x + __popc(static_cast<uint32_t>(e.y) & ((1u << t) - 1u));
       }
       store(mask, pos, i0, threads, q, hit, at);
     }
     return;
   }
-#ifndef REPRO_K5_DIR_IN_L2
-  tma::wait(&bar);
-#endif
   for (long long i0 = g; i0 < q; i0 += kSearchVQ * threads) {
     int32_t key[kSearchVQ];
     load_keys(a, i0, threads, q, k, key);
@@ -229,10 +193,9 @@ __global__ void __launch_bounds__(kSearchThreads)
 #pragma unroll
     for (int j = 0; j < kSearchVQ; ++j) {
       const bool in = key[j] >= k.b0 && key[j] <= k.bl;
-      const int u = in ? bucket(key[j], k) : 0;
-      const int d0 = K5_DIR(u), d1 = K5_DIR(u + 1);
-      lo[j] = in ? d0 : (key[j] > k.bl ? n : 0);
-      hi[j] = in ? d1 : lo[j];
+      const int2 e = __ldg(dir + (in ? bucket(key[j], k) : 0));
+      lo[j] = in ? e.x : (key[j] > k.bl ? n : 0);
+      hi[j] = in ? e.y : lo[j];
       eq[j] = false;
     }
     // The lower bound lies in [lo, hi]: below dir[u] every key is in an
@@ -265,34 +228,18 @@ __global__ void __launch_bounds__(kSearchThreads)
   }
 }
 
-#ifdef REPRO_K5_DIR_IN_L2
-constexpr size_t kMaxSmem = 0;
-#else
-constexpr size_t kMaxSmem = (dir_entries(kMaxDirBits) + occ_words(kMaxDirBits)) * sizeof(int32_t);
-#endif
-
-// Blocks of the persistent grid on device `dev`: one an SM (fewer if the
-// largest directory does not fit); raises the kernel's dynamic shared
-// memory limit on first use.
+// Blocks of the persistent grid on device `dev`: one an SM.
 int grid_cap(int dev) {
   static int cap[64];
   if (dev < 0 || dev >= 64) return 0;
-  if (cap[dev] == 0) {
-    int sms = 0, per_sm = 0;
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaFuncSetAttribute(search_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(kMaxSmem));
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, search_kernel, kSearchThreads,
-                                                  kMaxSmem);
-    cap[dev] = per_sm > 0 ? sms : 0;
-  }
+  if (cap[dev] == 0) cudaDeviceGetAttribute(&cap[dev], cudaDevAttrMultiProcessorCount, dev);
   return cap[dev];
 }
 
 }  // namespace
 
-// dir: scratch of dir_entries(r) + occ_words(r) int32, allocated by the
-// caller; 1 <= r <= kMaxDirBits.
+// dir: scratch of 2^r + 1 int32 pairs, allocated by the caller;
+// 1 <= r <= kMaxDirBits.
 REPRO_EXPORT int intersect_launch(const void* a, const void* b, void* mask, void* pos, void* dir,
                                   int q, int n, int r, void* stream) {
   if (q <= 0) return static_cast<int>(cudaGetLastError());
@@ -302,17 +249,12 @@ REPRO_EXPORT int intersect_launch(const void* a, const void* b, void* mask, void
   const long long want = (q + static_cast<long long>(kSearchThreads) - 1) / kSearchThreads;
   const unsigned int blocks =
       static_cast<unsigned int>(std::min(want, static_cast<long long>(grid_cap(dev))));
-#ifdef REPRO_K5_DIR_IN_L2
-  const size_t smem = 0;
-#else
-  const size_t smem = (dir_entries(r) + occ_words(r)) * sizeof(int32_t);
-#endif
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int32_t* b32 = static_cast<const int32_t*>(b);
-  int32_t* dir32 = static_cast<int32_t*>(dir);
-  directory_kernel<<<grid_for(n), kThreads, 0, st>>>(b32, n, r, dir32);
-  search_kernel<<<blocks, kSearchThreads, smem, st>>>(
-      static_cast<const int32_t*>(a), b32, dir32, static_cast<uint8_t*>(mask),
+  int2* dir2 = static_cast<int2*>(dir);
+  directory_kernel<<<grid_for(n), kThreads, 0, st>>>(b32, n, r, dir2);
+  search_kernel<<<blocks, kSearchThreads, 0, st>>>(
+      static_cast<const int32_t*>(a), b32, dir2, static_cast<uint8_t*>(mask),
       static_cast<int32_t*>(pos), q, n, r);
   return static_cast<int>(cudaGetLastError());
 }

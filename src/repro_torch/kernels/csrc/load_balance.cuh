@@ -20,8 +20,8 @@
 //   3. The block's window of A (at most kTile + 1 entries, contiguous;
 //      one entry left of the block's first item, for the slots that come
 //      before any of its own A items), and for K2 the same rows of `base`,
-//      go to shared memory in one 1-D bulk copy each (TMA, tma.cuh),
-//      rounded out to 16-byte bounds.
+//      go to shared memory in one 1-D bulk copy each (TMA, cp.async.bulk,
+//      completing on an mbarrier), rounded out to 16-byte bounds.
 //   4. Each thread finds its own diagonal by a binary search in shared
 //      memory and runs a serial merge of kVT steps, writing each slot's
 //      ub into a shared staging row.
@@ -41,7 +41,6 @@
 #pragma once
 
 #include "common.cuh"
-#include "tma.cuh"
 
 namespace lb {
 
@@ -131,6 +130,10 @@ __device__ __forceinline__ int warp_split(const int32_t* __restrict__ a, int n, 
   return lo;
 }
 
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
 // Entries between the 16-byte bound below p and p.
 __device__ __forceinline__ int lead(const int32_t* p) {
   return static_cast<int>((reinterpret_cast<uintptr_t>(p) & 15) >> 2);
@@ -160,7 +163,10 @@ __device__ __forceinline__ Tile merge_tile(const int32_t* const (&srcs)[kWindows
   mark(0);
   t.l = max(0, min(__ldg(total), capacity));  // in flight during the searches
   const int warp = threadIdx.x >> 5;
-  if (threadIdx.x == 0) tma::init(&sh.bar);
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(&sh.bar)) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
   if (warp < 2) {
     const int s = warp_split(a, n, capacity, d0 + warp * kTile);
     if ((threadIdx.x & 31) == 0) sh.split[warp] = s;
@@ -180,15 +186,28 @@ __device__ __forceinline__ Tile merge_tile(const int32_t* const (&srcs)[kWindows
   const int w0 = max(t.i0 - 1, 0), w1 = max(t.i1, w0 + 1);
   for (int w = 0; w < kWindows; ++w) t.origin[w] = lead(srcs[w] + w0) - w0;
   if (threadIdx.x == 0) {
+    const uint32_t bar = smem_addr(&sh.bar);
     uint32_t bytes[kWindows], sum = 0;
     for (int w = 0; w < kWindows; ++w) sum += bytes[w] = span_bytes(srcs[w] + w0, w1 - w0);
-    tma::expect(&sh.bar, sum);
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(sum)
+                 : "memory");
     for (int w = 0; w < kWindows; ++w) {
       const uintptr_t src = reinterpret_cast<uintptr_t>(srcs[w] + w0) & ~uintptr_t{15};
-      tma::copy(sh.win[w], reinterpret_cast<const void*>(src), bytes[w], &sh.bar);
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+          ::"r"(smem_addr(sh.win[w])), "l"(src), "r"(bytes[w]), "r"(bar)
+          : "memory");
     }
   }
-  tma::wait(&sh.bar);
+  for (uint32_t done = 0; !done;) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(smem_addr(&sh.bar))
+        : "memory");
+  }
   mark(2);
 
   // this thread's run of kVT diagonals, in the block's coordinates

@@ -13,7 +13,7 @@ holds a[i].
 tensors on the CPU. On the card a bucket directory over b's key range
 (2^r buckets, `directory_bits`) narrows each search to one bucket, or,
 where buckets are at most 32 ids wide, answers from an occupancy word a
-bucket without a search; the wrapper allocates both as scratch
+bucket without a search; the wrapper allocates it as scratch
 (`directory_words`). `launches` counts wrapper calls that launch the
 kernel.
 """
@@ -34,10 +34,10 @@ def directory_bits(n: int) -> int:
 
 
 def directory_words(r: int) -> int:
-    """int32 words of the kernel's scratch for 2^r buckets: the directory,
-    2^r + 1 entries, and an occupancy word a bucket, each padded to a
-    multiple of 4 (the copy into shared memory moves 16-byte granules)."""
-    return ((1 << r) + 1 + 3) // 4 * 4 + ((1 << r) + 3) // 4 * 4
+    """int32 words of the kernel's scratch for 2^r buckets: 2^r + 1 pairs
+    (a bucket's first key, and the next bucket's first key or the bucket's
+    occupancy word)."""
+    return 2 * ((1 << r) + 1)
 
 
 def intersect_plain(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

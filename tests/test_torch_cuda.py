@@ -129,15 +129,17 @@ def test_slice_on_card_matches_cpu(cuda, agg, rng):
 
 I32_MIN, I32_MAX = -(2**31), 2**31 - 1
 # K5's bucket directory: the cases it could get wrong
-INTERSECT_HARD = ("full_span", "n1", "n2", "dense_outlier", "at_ends", "q1", "ragged")
+INTERSECT_HARD = ("full_span", "n1", "n2", "dense_outlier", "contiguous", "at_ends", "q1",
+                  "ragged")
 
 
 def intersect_hard_case(name, rng):
     """(a, b) int32 numpy arrays: b over the whole int32 range (its span,
     b[N-1] - b[0], is 2^32 - 1), N = 1 (span 0) and N = 2, a dense run of
     50,000 keys with one outlier at 2^31 - 1 (nearly every key in one
-    bucket), queries equal to b[0] and b[N-1], Q = 1, and a Q of 4,099 (a
-    multiple of no tile)."""
+    bucket), 300,000 consecutive keys (every bucket full, 32 keys, most
+    across two warps of the pre-pass), queries equal to b[0] and b[N-1],
+    Q = 1, and a Q of 4,099 (a multiple of no tile)."""
     keys = np.unique(rng.integers(0, 300_000, 40_000))
     if name == "full_span":
         b = np.unique(np.concatenate([[I32_MIN, I32_MAX], rng.integers(I32_MIN, I32_MAX, 3000)]))
@@ -151,6 +153,9 @@ def intersect_hard_case(name, rng):
         b = np.append(np.arange(1000, 51_000), I32_MAX)
         a = np.concatenate([rng.integers(0, 60_000, 3000), [I32_MAX, I32_MAX - 1, 1000, 50_999,
                                                              51_000]])
+    elif name == "contiguous":
+        b = np.arange(17, 300_017)
+        a = np.concatenate([rng.integers(0, 300_100, 3000), [16, 17, 300_016, 300_017]])
     elif name == "at_ends":
         b = keys
         a = [b[0], b[-1], b[0] - 1, b[-1] + 1, b[-1], b[0]]

@@ -272,13 +272,11 @@ def test_intersect_edge_keys():
                                  (1 << 14, 14), ((1 << 14) + 1, 15), (2_097_152, 21)])
 def test_intersect_directory_bits(n, r):
     """2^r buckets for N keys: the power of two at or above N, at least 2,
-    at most 2^MAX_DIRECTORY_BITS. The kernel's scratch holds 2^r + 1
-    directory entries and 2^r occupancy words, each padded to a multiple
-    of 4."""
+    at most 2^MAX_DIRECTORY_BITS. The kernel's scratch holds 2^r + 1 pairs
+    of int32."""
     r = min(r, intersect.MAX_DIRECTORY_BITS)
     assert intersect.directory_bits(n) == r
-    words = intersect.directory_words(r)
-    assert words % 4 == 0 and 2 * (1 << r) + 1 <= words <= 2 * (1 << r) + 8
+    assert intersect.directory_words(r) == 2 * ((1 << r) + 1)
 
 
 # ---- lex_searchsorted (the delta merge's rank) ------------------------------------

@@ -34,9 +34,7 @@ import chip_smoke  # noqa: E402
 
 VARIANTS = {  # name: (extra nvcc flags, directory bits)
     "shipped": ((), 14),
-    "dense_vq4": (("-DREPRO_K5_DENSE_VQ=4",), 14),
     "dense_vq16": (("-DREPRO_K5_DENSE_VQ=16",), 14),
-    "dir_in_l2": (("-DREPRO_K5_DIR_IN_L2",), 14),
 }
 
 
