@@ -15,35 +15,33 @@
 //
 // What the design does about it:
 //   - A bucket directory over b's key range replaces the upper levels of
-//     the search with one lookup in shared memory. With 2^r buckets (r
-//     from n on the host: about one bucket a key, at most 2^kMaxDirBits)
-//     and s the smallest shift with (b[n-1] - b[0]) >> s < 2^r,
-//     bucket(x) = uint32(x - b[0]) >> s; 32-bit unsigned arithmetic, so
-//     a b over the whole int32 range does not overflow. dir[u] is the
-//     first i with bucket(b[i]) >= u, dir[2^r] = n. A key in
-//     [b[0], b[n-1]] has its lower bound in [dir[u], dir[u+1]] for
-//     u = bucket(key); keys outside that range miss at 0 or n.
+//     the search with one lookup. With 2^r buckets (r from n on the host:
+//     about one bucket a key, at most 2^kMaxDirBits) and s the smallest
+//     shift with (b[n-1] - b[0]) >> s < 2^r, bucket(x) = uint32(x - b[0])
+//     >> s; 32-bit unsigned arithmetic, so a b over the whole int32 range
+//     does not overflow. dir[u].x is the first i with bucket(b[i]) >= u.
+//     A key in [b[0], b[n-1]] has its lower bound in [dir[u].x,
+//     dir[u+1].x] for u = bucket(key); keys outside that range miss at 0
+//     or n.
 //   - Where buckets are at most 32 ids wide (s <= 5: keys dense in their
-//     range, as person ids are), each also carries an occupancy word, bit
-//     t set when b[0] + (u << s) + t is a key. A query is then two
-//     shared-memory loads: mask from the bit, pos = dir[u] plus the set
-//     bits below it; b is not read at all. Wider buckets are searched in
-//     b (through L1 and L2) between dir[u] and dir[u+1], at most
+//     range, as person ids are), dir[u].y is the bucket's occupancy word,
+//     bit t set when b[0] + (u << s) + t is a key. A query then takes one
+//     8-byte load: mask from the bit, pos = dir[u].x plus the set bits
+//     below it; b is not read. Wider buckets keep dir[u + 1].x in .y and
+//     are searched in b (through L1 and L2) between the two, at most
 //     min(s, log2 n) steps; the search tracks whether b at its upper end
 //     equals the key, so no further load decides membership.
-//   - A pre-pass kernel with one thread per key builds both, every entry
-//     written exactly once and no atomics: thread i writes dir[u] = i for
-//     u in (bucket(b[i-1]), bucket(b[i])] and the word of its bucket if it
-//     is the bucket's first key; the entries after the last key's bucket
-//     are spread over all threads. b[0] and b[n-1] are read on the
-//     device, so the host never syncs.
-//   - The search kernel runs a persistent grid, one block of 1024
-//     threads an SM. Each block copies the directory (and, when dense,
-//     the words) into shared memory with one TMA bulk copy (tma.cuh)
-//     while its threads load their first keys. Thread g of the grid takes
-//     queries g, g + P, g + 2P, ... (P threads in all), several at once so
-//     that their loads overlap: reads of a and writes of mask and pos stay
-//     coalesced, and the threads' shares differ by at most one query.
+//   - The directory stays in device memory and is read through L1 (__ldg):
+//     its 2^14 pairs take 128 KB, and a copy into every block's shared
+//     memory cost more than the lookups it saved (PERF.md).
+//   - A pre-pass kernel with one thread per key builds it, every entry
+//     written exactly once, without atomics and without a host sync (b[0]
+//     and b[n-1] are read on the device).
+//   - The search kernel runs a persistent grid, one block of 1024 threads
+//     an SM. Thread g takes queries g, g + P, g + 2P, ... (P threads in
+//     all), several at once so that their loads overlap: reads of a and
+//     writes of mask and pos stay coalesced, and the threads' shares
+//     differ by at most one query.
 #include <algorithm>#include <algorithm>
 
 #include "common.cuh"
@@ -108,7 +106,21 @@ __global__ void directory_kernel(const int32_t* __restrict__ b, int n, int r,
   const int32_t x = __ldg(b + i);
   const int hi = bucket(x, k);
   const int lo = i == 0 ? -1 : bucket(__ldg(b + i - 1), k);
+#ifdef REPRO_K5_MATCH_ANY
   const uint32_t word = dense ? __reduce_or_sync(__match_any_sync(live, hi), bit(x, k)) : 0u;
+#else
+  // OR of the bits of this and later lanes of the warp in the same bucket
+  // (a bucket's keys are consecutive): a segmented scan by shuffles.
+  uint32_t word = dense ? bit(x, k) : 0u;
+  if (dense) {
+    const int lane = threadIdx.x & 31;
+    for (int d = 1; d < 32; d <<= 1) {
+      const uint32_t w = __shfl_down_sync(live, word, d);
+      const int h = __shfl_down_sync(live, hi, d);
+      if (lane + d < 32 && ((live >> (lane + d)) & 1u) && h == hi) word |= w;
+    }
+  }
+#endif
   for (int u = lo + 1; u <= hi; ++u) {
     dir[u].x = static_cast<int32_t>(i);
     if (!dense && u > 0) dir[u - 1].y = static_cast<int32_t>(i);
@@ -116,11 +128,26 @@ __global__ void directory_kernel(const int32_t* __restrict__ b, int n, int r,
   }
   if (dense && hi > lo) {
     uint32_t all = word;
-    for (long long j = (i | 31) + 1; j < n; ++j) {  // keys of the bucket in later warps
+#ifdef REPRO_K5_SERIAL_TAIL
+    for (long long j = (i | 31) + 1; j < n; ++j) {
       const int32_t y = __ldg(b + j);
       if (bucket(y, k) != hi) break;
       all |= bit(y, k);
     }
+#else
+    for (long long j = (i | 31) + 1; j < n; j += 4) {  // its keys in later warps, 4 loads at a time
+      int32_t y[4];
+#pragma unroll
+      for (int t = 0; t < 4; ++t) y[t] = j + t < n ? __ldg(b + j + t) : k.bl;
+      bool more = true;
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        more = more && j + t < n && bucket(y[t], k) == hi;
+        if (more) all |= bit(y[t], k);
+      }
+      if (!more) break;
+    }
+#endif
     dir[hi].y = static_cast<int32_t>(all);
   }
   if (i == n - 1) {

@@ -34,7 +34,7 @@ import chip_smoke  # noqa: E402
 
 VARIANTS = {  # name: (extra nvcc flags, directory bits)
     "shipped": ((), 14),
-    "dense_vq16": (("-DREPRO_K5_DENSE_VQ=16",), 14),
+    "match_any": (("-DREPRO_K5_MATCH_ANY", "-DREPRO_K5_SERIAL_TAIL"), 14),
 }
 
 
