@@ -7,8 +7,7 @@ Phases (any failure raises, and the script exits non-zero):
   1. Build: compile the five CUDA kernels (K1-K5) from src/repro_torch/
      kernels/csrc, one nvcc each, in parallel; print ptxas's register,
      spill and shared-memory lines for each kernel function (K5 has two:
-     the directory pre-pass and the search, whose directory is dynamic
-     shared memory).
+     the directory pre-pass and the search).
   2. Main path: repro_torch.core.compiled_free_join on the card, with the
      kernels' launch counters set to 0 just before and read just after:
      LSQB q1 (the triangle over `knows` at SF 10: 1,800,200 rows, 300,100
@@ -714,7 +713,8 @@ def parity(mods, captured, streamed, paths, k5_shapes, device):
     streaming path's largest (`streamed`: one standing-q1 ingest's, and
     the stage replay's registration and first batch's), for K5 its other
     shapes (`k5_shapes`), and the edge cases; every K5 result also equals
-    numpy's. Returns name -> max abs error on the `captured` input."""
+    numpy's. Returns name -> max abs error on the `captured` input, and
+    "intersect <shape>" -> that on each of K5's other shapes."""
     errors = {}
     cases = edge_cases(device)
     for name in JOIN_KERNELS:
@@ -741,6 +741,8 @@ def parity(mods, captured, streamed, paths, k5_shapes, device):
                 fail(f"intersect: kernel differs from numpy's searchsorted on case {i}")
             if i == 0:
                 errors[name] = err
+            elif i < len(where) and where[i][0].endswith(" shape"):
+                errors[f"{name} {where[i][0].removesuffix(' shape')}"] = err
         inputs = ", ".join(f"the {p}'s largest input" if "shape" not in p else f"the {p}"
                            for p, _a in where)
         print(f"parity: {name} exact on {inputs} and {len(cases[name])} edge cases", flush=True)
@@ -911,7 +913,8 @@ def timing(mods, captured, launches, errors, paths, k5_shapes):
                "parity": "exact", "max_abs_err": errors[name]}
         rec.update(time_kernel(mods, name, captured[name], captured))
         if name == "intersect":
-            rec["shapes"] = [{"name": shape, "max_abs_err": 0, **time_kernel(mods, name, args)}
+            rec["shapes"] = [{"name": shape, "max_abs_err": errors[f"{name} {shape}"],
+                              **time_kernel(mods, name, args)}
                              for shape, args in k5_shapes.items()]
         records.append(rec)
     return records
@@ -973,10 +976,6 @@ def main(argv=None) -> int:
     for name, log in logs.items():
         for fn, line in ptxas_report(log):
             print(f"build: {name}: {fn}: {line}")
-    from repro_torch.kernels import intersect
-
-    print("build: intersect: its directory (scratch in device memory, read through L1) takes "
-          f"up to {4 * intersect.directory_words(intersect.MAX_DIRECTORY_BITS)} bytes")
 
     mods = kernel_modules()
 

@@ -42,18 +42,15 @@
 //     all), several at once so that their loads overlap: reads of a and
 //     writes of mask and pos stay coalesced, and the threads' shares
 //     differ by at most one query.
-#include <algorithm>#include <algorithm>
+#include <algorithm>
 
 #include "common.cuh"
 
 namespace {
 
 constexpr int kSearchThreads = 1024;  // one block an SM
-#ifndef REPRO_K5_DENSE_VQ
-#define REPRO_K5_DENSE_VQ 8
-#endif
-constexpr int kDenseVQ = REPRO_K5_DENSE_VQ;  // queries a thread takes at once, bit lookups
-constexpr int kSearchVQ = 2;                 // and searches
+constexpr int kDenseVQ = 8;   // queries a thread takes at once: bit lookups
+constexpr int kSearchVQ = 2;  // and searches
 constexpr int kMaxDirBits = 14;
 constexpr int kDenseShift = 5;  // buckets of at most 32 ids carry an occupancy word
 
@@ -106,9 +103,6 @@ __global__ void directory_kernel(const int32_t* __restrict__ b, int n, int r,
   const int32_t x = __ldg(b + i);
   const int hi = bucket(x, k);
   const int lo = i == 0 ? -1 : bucket(__ldg(b + i - 1), k);
-#ifdef REPRO_K5_MATCH_ANY
-  const uint32_t word = dense ? __reduce_or_sync(__match_any_sync(live, hi), bit(x, k)) : 0u;
-#else
   // OR of the bits of this and later lanes of the warp in the same bucket
   // (a bucket's keys are consecutive): a segmented scan by shuffles.
   uint32_t word = dense ? bit(x, k) : 0u;
@@ -120,7 +114,6 @@ __global__ void directory_kernel(const int32_t* __restrict__ b, int n, int r,
       if (lane + d < 32 && ((live >> (lane + d)) & 1u) && h == hi) word |= w;
     }
   }
-#endif
   for (int u = lo + 1; u <= hi; ++u) {
     dir[u].x = static_cast<int32_t>(i);
     if (!dense && u > 0) dir[u - 1].y = static_cast<int32_t>(i);
@@ -128,14 +121,8 @@ __global__ void directory_kernel(const int32_t* __restrict__ b, int n, int r,
   }
   if (dense && hi > lo) {
     uint32_t all = word;
-#ifdef REPRO_K5_SERIAL_TAIL
-    for (long long j = (i | 31) + 1; j < n; ++j) {
-      const int32_t y = __ldg(b + j);
-      if (bucket(y, k) != hi) break;
-      all |= bit(y, k);
-    }
-#else
-    for (long long j = (i | 31) + 1; j < n; j += 4) {  // its keys in later warps, 4 loads at a time
+    // its keys in later warps, 4 loads at a time
+    for (long long j = (i | 31) + 1; j < n; j += 4) {
       int32_t y[4];
 #pragma unroll
       for (int t = 0; t < 4; ++t) y[t] = j + t < n ? __ldg(b + j + t) : k.bl;
@@ -147,7 +134,6 @@ __global__ void directory_kernel(const int32_t* __restrict__ b, int n, int r,
       }
       if (!more) break;
     }
-#endif
     dir[hi].y = static_cast<int32_t>(all);
   }
   if (i == n - 1) {
@@ -255,14 +241,6 @@ __global__ void __launch_bounds__(kSearchThreads)
   }
 }
 
-// Blocks of the persistent grid on device `dev`: one an SM.
-int grid_cap(int dev) {
-  static int cap[64];
-  if (dev < 0 || dev >= 64) return 0;
-  if (cap[dev] == 0) cudaDeviceGetAttribute(&cap[dev], cudaDevAttrMultiProcessorCount, dev);
-  return cap[dev];
-}
-
 }  // namespace
 
 // dir: scratch of 2^r + 1 int32 pairs, allocated by the caller;
@@ -271,11 +249,11 @@ REPRO_EXPORT int intersect_launch(const void* a, const void* b, void* mask, void
                                   int q, int n, int r, void* stream) {
   if (q <= 0) return static_cast<int>(cudaGetLastError());
   if (n < 1 || r < 1 || r > kMaxDirBits) return static_cast<int>(cudaErrorInvalidValue);
-  int dev = 0;
+  int dev = 0, sms = 0;  // the persistent grid: one block an SM, fewer for a small q
   cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const long long want = (q + static_cast<long long>(kSearchThreads) - 1) / kSearchThreads;
-  const unsigned int blocks =
-      static_cast<unsigned int>(std::min(want, static_cast<long long>(grid_cap(dev))));
+  const auto blocks = static_cast<unsigned int>(std::min(want, static_cast<long long>(sms)));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int32_t* b32 = static_cast<const int32_t*>(b);
   int2* dir2 = static_cast<int2*>(dir);

@@ -228,18 +228,22 @@ def intersect_case(rng, m, n):
     return a, b
 
 
-@pytest.mark.parametrize("m,n,hard", [
-    *(pytest.param(m, n, None, id=f"{m}-{n}")
+@pytest.mark.parametrize("case", [
+    *(pytest.param((m, n), id=f"{m}-{n}")
       for m, n in [(1, 1), (100, 37), (1000, 999), (1025, 500), (0, 50), (40, 0)]),
-    *(pytest.param(0, 0, name, id=name) for name in INTERSECT_HARD),
+    *INTERSECT_HARD,
 ])
-def test_intersect_vs_pallas(m, n, hard, rng):
+def test_intersect_vs_pallas(case, rng):
     """K5's plain version (through ops.intersect_sorted) against the Pallas
-    kernel in interpret mode and both brute-force oracles; Q = 1025 is not
-    a multiple of the Pallas block, and m = 0 / n = 0 take the empty
-    shortcut of ops.intersect_sorted. `hard` names one of the bucket
-    directory's hard cases (test_torch_cuda.intersect_hard_case)."""
-    a, b = intersect_case(rng, m, n) if hard is None else intersect_hard_case(hard, rng)
+    kernel in interpret mode and both brute-force oracles. `case` is (m, n)
+    for intersect_case (Q = 1025 is not a multiple of the Pallas block, and
+    m = 0 / n = 0 take the empty shortcut of ops.intersect_sorted) or the
+    name of one of the bucket directory's hard cases
+    (test_torch_cuda.intersect_hard_case)."""
+    if isinstance(case, str):
+        a, b = intersect_hard_case(case, rng)
+    else:
+        a, b = intersect_case(rng, *case)
     m, n = len(a), len(b)
     wm, wp = jops.intersect_sorted(jnp.asarray(a), jnp.asarray(b), impl="pallas_interpret")
     gm, gp = ops.intersect_sorted(t32(a), t32(b))
@@ -268,13 +272,13 @@ def test_intersect_edge_keys():
     np.testing.assert_array_equal(gp.numpy(), [-1, 0, -1])
 
 
-@pytest.mark.parametrize("n,r", [(1, 1), (2, 1), (3, 2), (4, 2), (5, 3), (39_932, 16),
-                                 (1 << 14, 14), ((1 << 14) + 1, 15), (2_097_152, 21)])
-def test_intersect_directory_bits(n, r):
-    """2^r buckets for N keys: the power of two at or above N, at least 2,
-    at most 2^MAX_DIRECTORY_BITS. The kernel's scratch holds 2^r + 1 pairs
-    of int32."""
-    r = min(r, intersect.MAX_DIRECTORY_BITS)
+@pytest.mark.parametrize("n,bits", [(1, 1), (2, 1), (3, 2), (4, 2), (5, 3), (39_932, 16),
+                                    (1 << 14, 14), ((1 << 14) + 1, 15), (2_097_152, 21)])
+def test_intersect_directory_bits(n, bits):
+    """2^r buckets for N keys: the power of two at or above N (2^bits), at
+    least 2, at most 2^MAX_DIRECTORY_BITS. The kernel's scratch holds
+    2^r + 1 pairs of int32."""
+    r = min(bits, intersect.MAX_DIRECTORY_BITS)
     assert intersect.directory_bits(n) == r
     assert intersect.directory_words(r) == 2 * ((1 << r) + 1)
 
