@@ -33,14 +33,30 @@ Phases (any failure raises, and the script exits non-zero):
      compiled_free_join over fresh copies and the T-U stage was replayed;
      the final count equals the numpy oracle; sustained updates and rows
      per second.
-  4. K5's path (counter set to 0 before, read after): ops.intersect_sorted
+  4. Eager path (counters set to 0 before, read after; K1-K4 must launch):
+     the eager engine on the card. LSQB q1 at SF 10 (the main path's
+     `knows`) through free_join in modes colt, slt and simple,
+     binary_join and generic_join with agg="count", and free_join with
+     agg=None (rows equal to the oracle's and compiled_free_join's); the
+     main path's star through free_join and binary_join; the stage
+     replay's 4-chain through compiled_free_join with ExecOptions(
+     chain_stages=False) (the hybrid: eager non-root stages, compiled
+     root) and eager free_join; execute_tuples at batch 1000 on q1 at SF
+     0.1; and free_join(agg=None) on q1 at SF 1 on the card and on the
+     CPU, equal element for element. Every count equals its numpy oracle.
+     Per engine: first and median host ms, peak device memory and
+     launches, the compiled path's warm ms beside them (timed outside the
+     count); for one eager q1 call the device idle share (torch.profiler)
+     and its host synchronizations. The `eager path:` line holds them.
+  5. K5's path (counter set to 0 before, read after): ops.intersect_sorted
      of the 1,800,200 knows destinations into the sorted distinct knows
      sources, held against numpy.
-  5. Kernel parity: each kernel against its plain PyTorch version on the
+  6. Kernel parity: each kernel against its plain PyTorch version on the
      card, on the largest input of each kind its paths give it (the main
      path's; for K1-K4 also one standing-q1 ingest's, with 16,384-row
-     delta sorts and probes of the merged 2,097,152-row tables, and the
-     stage replay's registration and first batch) plus edge cases (a ragged
+     delta sorts and probes of the merged 2,097,152-row tables, the
+     stage replay's registration and first batch, and one eager
+     free_join(agg=None) of q1 at SF 10) plus edge cases (a ragged
      size, a one-row table or key set, all -1 lanes, total = 0, all hits,
      all misses, keys outside the key range; for K2 and K3 the shapes a
      tiled merge gets wrong: a hub row over 100,000 slots, 50,000 empty
@@ -54,14 +70,15 @@ Phases (any failure raises, and the script exits non-zero):
      2,097,152 distinct keys from [0, 2^24)); every K5 input is held
      against numpy's searchsorted too. Equality is exact: every output is
      an integer (tolerance 0).
-  6. Where a cold call's time goes: plan choice, uploads + trie builds,
+  7. Where a cold call's time goes: plan choice, uploads + trie builds,
      and the adaptive run, timed separately on fresh relation objects.
-  7. Timing: each kernel, its plain version and, where one PyTorch call
+  8. Timing: each kernel, its plain version and, where one PyTorch call
      computes the same function, that call, as device time from
      torch.profiler after warm-up (all kernels of one call summed),
      beside the least time the card could take (bound); CUDA-event wall
      times per call beside them. K5's record holds its two other shapes
-     under "shapes".
+     under "shapes"; every record its launches on its path ("launches")
+     and on the eager path ("eager_launches").
 
 The last line is {"ok": true, "device": {...}}; the line before it the
 `kernels` JSON record, and before that the card's name and power limit.
@@ -322,7 +339,7 @@ def streaming_triangle(device: str, seed: int, sf: float, sync, batches: int = 8
     if eng.refresh() or eng.stages_recomputed != recomputed:
         fail("standing q1: a refresh with no mutation recomputed a stage")
     rec["count_at_end"] = check("at the end")
-    rec["profile"] = profile_ingest(lambda: ingest(batches), lambda: ingest(batches + 1))
+    rec["profile"] = profile_run(lambda: ingest(batches), lambda: ingest(batches + 1))
     rec["count_after_profiled_batches"] = check("after the profiled batches")
     with capture_largest() as seen:
         ingest(batches + 2)
@@ -394,8 +411,9 @@ def check_cached_tries(views) -> int:
     return checked
 
 
-def profile_ingest(device_run, host_run, top: int = 8):
-    """Where one ingest's time goes. `device_run` runs under torch.profiler:
+def profile_run(device_run, host_run, top: int = 8):
+    """Where one run's time goes (an ingest, an eager query). `device_run`
+    runs under torch.profiler:
     its wall time, the summed device time of every kernel it launched (the
     device's busy time; one stream, so nothing overlaps) and the idle
     share, with the kernels taking most device time. `host_run` runs under
@@ -493,6 +511,223 @@ def stage_replay(device: str, seed: int, sync, n: int = 60_000, dom: int = 4_000
            "timed_s": wall, "updates_per_s": n_meas / wall,
            "rows_per_s": n_meas * batch / wall}
     print("stage replay: " + json.dumps(rec), flush=True)
+    return {name: args for name, (_size, args) in seen.items()}
+
+
+# ---------------------------------------------------------------------------
+# the eager path: free_join, binary_join, generic_join, the hybrid baseline
+# ---------------------------------------------------------------------------
+
+
+def sync_count(fn) -> int:
+    """Host synchronizations `fn` makes: the warnings of
+    torch.cuda.set_sync_debug_mode("warn"), one per synchronizing call."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in seen)
+
+
+def timed_calls(name, fn, want, sync, reps: int = 3) -> dict:
+    """fn() once, then `reps` times more, each call ending in a synchronize
+    and its result held against `want`. Returns the first call's host ms,
+    the median of the later calls', peak device memory and the kernels
+    launched."""
+    import torch
+
+    mods = kernel_modules()
+    before = {k: m.launches for k, m in mods.items()}
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(reps + 1):
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        times.append((time.perf_counter() - t) * 1e3)
+        if out != want:
+            fail(f"{name} call {i}: {out} != oracle {want}")
+    return {"first_ms": times[0], "median_ms": float(np.median(times[1:])),
+            "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+            "launches": {k: m.launches - before[k] for k, m in mods.items()}}
+
+
+def chain4_workload(seed: int, n: int = 60_000, dom: int = 4_000):
+    """The stage replay's 4-chain (the draws of stage_replay's relations,
+    those of benchmarks/bench_streaming.py): R(a,b) S(b,c) T(c,d) U(d,e),
+    plan (R⋈S)⋈(T⋈U). Returns (query, plan, relations)."""
+    from repro_torch.core.plan import BinaryPlan
+    from repro_torch.relational.relation import Relation
+    from repro_torch.relational.schema import Atom, Query
+
+    rng = np.random.default_rng(seed)
+    q = Query([Atom("R", ("a", "b")), Atom("S", ("b", "c")), Atom("T", ("c", "d")),
+               Atom("U", ("d", "e"))])
+    at = {a.alias: a for a in q.atoms}
+    tree = BinaryPlan(BinaryPlan(at["R"], at["S"]), BinaryPlan(at["T"], at["U"]))
+    rels = {a.alias: Relation(a.alias, {v: rng.integers(0, dom, n).astype(np.int32)
+                                        for v in a.vars}) for a in q.atoms}
+    return q, tree, rels
+
+
+def eager_oracles(seed: int, workloads, sync) -> dict:
+    """What the eager path is held against and timed beside: the numpy
+    oracles of q1 (count and rows), the star and the 4-chain, and the
+    compiled path on the same queries (its warm q1 count and rows, the
+    chained 4-chain count). Runs outside the eager path's launch count."""
+    from repro_torch.core import compiled_free_join, materialize
+
+    q1, q1_rels, star, star_rels, opts = workloads
+    knows = q1_rels["K1"]
+    tri_count, tri_rows, _ = triangle_oracle(knows.columns["a"], knows.columns["b"])
+    star_dom = 1 + max(int(r.columns["y"].max()) for r in star_rels.values())
+    chain = chain4_workload(seed)
+    ref = {"q1_count": tri_count, "q1_rows": sorted_rows(tri_rows),
+           "star_count": star_oracle(star_rels, star_dom), "chain4": chain,
+           "chain4_count": chain4_oracle(chain[2])}
+    ref["q1 compiled_free_join (warm)"] = timed_calls(
+        "q1 compiled_free_join", lambda: compiled_free_join(q1, q1_rels, agg="count",
+                                                            options=opts), tri_count, sync)
+    q, tree, rels = chain
+    ref["chain4 compiled_free_join (chained)"] = timed_calls(
+        "chain4 compiled_free_join", lambda: compiled_free_join(q, rels, tree, agg="count",
+                                                                options=opts),
+        ref["chain4_count"], sync)
+    bound, mult = compiled_free_join(q1, q1_rels, agg=None, options=opts)
+    ref["q1_compiled_rows"] = head_rows(materialize(bound, mult, q1.head), q1.head)
+    return ref
+
+
+def head_rows(cols, head) -> np.ndarray:
+    """Materialized result columns as sorted (M, len(head)) rows."""
+    return sorted_rows(np.stack([cols[v] for v in head], axis=1))
+
+
+def eager_path(device: str, seed: int, workloads, ref, sync, tuples_sf: float = 0.1,
+               parity_sf: float = 1.0):
+    """The eager engine on the card, every result held against a numpy
+    oracle (`ref`, from eager_oracles). LSQB q1 at SF 10 (the main path's
+    `knows`) through free_join in modes colt, slt and simple, binary_join
+    and generic_join (counts), and free_join(agg=None), whose rows must
+    equal the oracle's and compiled_free_join's; the low-selectivity star
+    (the main path's) through free_join and binary_join; the stage
+    replay's 4-chain through the hybrid
+    compiled_free_join(ExecOptions(chain_stages=False)) and eager
+    free_join; execute_tuples at batch 1000 on q1 at SF `tuples_sf`, whose
+    tuples must equal free_join's; and eager free_join(agg=None) on q1 at
+    SF `parity_sf` on the card and on the CPU (the kernels' plain
+    versions), equal element for element, with the 2-path over the same
+    table beside it. Per engine (timed_calls): first
+    and median host ms, peak device memory, kernels launched; the compiled
+    path's warm ms beside them; for one eager q1 count its device idle
+    share, device ops and host profile (profile_run), and its host
+    synchronizations. One more eager q1 call runs with the kernels' inputs
+    recorded; returns them."""
+    from repro_torch.core import (
+        ExecOptions,
+        binary2fj,
+        binary_join,
+        compiled_free_join,
+        factor,
+        free_join,
+        generic_join,
+        materialize,
+        optimize,
+        to_sorted_tuples,
+    )
+    from repro_torch.core.tuple_engine import execute_tuples
+    from repro_torch.relational.datagen import lsqb_knows, lsqb_q1
+    from repro_torch.relational.schema import Query
+
+    q1, q1_rels, star, star_rels, _opts = workloads
+    rec = {"q1_rows": q1_rels["K1"].num_rows, "q1_count": ref["q1_count"],
+           "star_count": ref["star_count"], "chain4_count": ref["chain4_count"]}
+
+    def timed(name, fn, want):
+        rec[name] = timed_calls(f"eager path: {name}", fn, want, sync)
+
+    for mode in ("colt", "slt", "simple"):
+        timed(f"q1 free_join {mode}", lambda: free_join(q1, q1_rels, mode=mode, agg="count",
+                                                        device=device), ref["q1_count"])
+    # the same call with the plan given: the engine without the host's
+    # plan choice (optimize np.unique's every column, every call)
+    q1_tree = optimize(q1, q1_rels)
+    timed("q1 free_join colt, plan given",
+          lambda: free_join(q1, q1_rels, q1_tree, agg="count", device=device), ref["q1_count"])
+    timed("q1 binary_join", lambda: binary_join(q1, q1_rels, agg="count", device=device),
+          ref["q1_count"])
+    timed("q1 generic_join", lambda: generic_join(q1, q1_rels, agg="count", device=device),
+          ref["q1_count"])
+    rec["q1 compiled_free_join (warm)"] = ref["q1 compiled_free_join (warm)"]
+    bound, mult = free_join(q1, q1_rels, device=device)
+    got = head_rows(materialize(bound, mult, q1.head), q1.head)
+    for name, want in (("the oracle's", ref["q1_rows"]),
+                       ("compiled_free_join's", ref["q1_compiled_rows"])):
+        if got.shape != want.shape or not np.array_equal(got, want):
+            fail(f"eager path: q1 free_join(agg=None) rows differ from {name}")
+    rec["q1_result_rows"] = len(got)
+
+    def one_call():
+        t = time.perf_counter()
+        free_join(q1, q1_rels, agg="count", device=device)
+        sync()
+        return (time.perf_counter() - t,)
+
+    rec["q1 free_join colt profile"] = profile_run(one_call, one_call)
+    rec["q1 free_join colt host syncs"] = sync_count(one_call)
+
+    timed("star free_join", lambda: free_join(star, star_rels, agg="count", device=device),
+          ref["star_count"])
+    timed("star binary_join", lambda: binary_join(star, star_rels, agg="count", device=device),
+          ref["star_count"])
+    star_tree = optimize(star, star_rels)
+    timed("star free_join, plan given",
+          lambda: free_join(star, star_rels, star_tree, agg="count", device=device),
+          ref["star_count"])
+
+    q, tree, chain = ref["chain4"]
+    hybrid = ExecOptions(device=device, chain_stages=False)
+    timed("chain4 hybrid compiled_free_join",
+          lambda: compiled_free_join(q, chain, tree, agg="count", options=hybrid),
+          ref["chain4_count"])
+    timed("chain4 free_join", lambda: free_join(q, chain, tree, agg="count", device=device),
+          ref["chain4_count"])
+    rec["chain4 compiled_free_join (chained)"] = ref["chain4 compiled_free_join (chained)"]
+
+    small_q, small_rels = lsqb_q1(lsqb_knows(sf=tuples_sf, seed=seed + 1))
+    fj = factor(binary2fj(small_q.atoms, small_q))
+    t = time.perf_counter()
+    tuples = sorted(execute_tuples(fj, small_rels, batch_size=1000, device=device))
+    rec["execute_tuples"] = {"sf": tuples_sf, "rows": small_rels["K1"].num_rows,
+                             "batch": 1000, "s": time.perf_counter() - t,
+                             "tuples": len(tuples)}
+    if tuples != to_sorted_tuples(free_join(small_q, small_rels, device=device), small_q.head):
+        fail("eager path: execute_tuples' tuples differ from free_join's")
+
+    # q1 at SF 1 and, since its triangles are few (or none), the 2-path
+    # knows(a,b), knows(b,c) over the same table: a result that is not
+    # empty, through expansions, probes, compactions and sorts
+    mid_q, mid_rels = lsqb_q1(lsqb_knows(sf=parity_sf, seed=seed + 1))
+    two_path = Query(list(mid_q.atoms[:2]))
+    rec["card_equals_cpu"] = {"sf": parity_sf, "rows": mid_rels["K1"].num_rows}
+    for name, q in (("q1", mid_q), ("2-path", two_path)):
+        t = time.perf_counter()
+        (gb, gm), (cb, cm) = (free_join(q, mid_rels, device=dev) for dev in (device, "cpu"))
+        if set(gb) != set(cb) or not all(np.array_equal(gb[v], cb[v]) for v in cb) \
+                or not np.array_equal(gm, cm):
+            fail(f"eager path: free_join of {name} on the card differs from the CPU's")
+        rec["card_equals_cpu"][name] = {"result_rows": len(cm), "mult_sum": int(cm.sum()),
+                                        "s": time.perf_counter() - t}
+    print("eager path: " + json.dumps(rec), flush=True)
+    with capture_largest() as seen:
+        free_join(q1, q1_rels, device=device)
     return {name: args for name, (_size, args) in seen.items()}
 
 
@@ -707,11 +942,12 @@ def max_abs_err(got, want) -> int:
     return max(errs)
 
 
-def parity(mods, captured, streamed, paths, k5_shapes, device):
+def parity(mods, captured, streamed, eager, paths, k5_shapes, device):
     """Exact equality of each kernel and its plain version, on the largest
     input its path gave it (`captured`; `paths` names the path), the
     streaming path's largest (`streamed`: one standing-q1 ingest's, and
-    the stage replay's registration and first batch's), for K5 its other
+    the stage replay's registration and first batch's), the eager path's
+    (`eager`: one free_join(agg=None) of q1 at SF 10), for K5 its other
     shapes (`k5_shapes`), and the edge cases; every K5 result also equals
     numpy's. Returns name -> max abs error on the `captured` input, and
     "intersect <shape>" -> that on each of K5's other shapes."""
@@ -720,6 +956,9 @@ def parity(mods, captured, streamed, paths, k5_shapes, device):
     for name in JOIN_KERNELS:
         if not any(name in seen for seen in streamed.values()):
             fail(f"{name}: the streaming path gave it no input to compare on")
+        if name not in eager:
+            fail(f"{name}: the eager path gave it no input to compare on")
+    streamed = {**streamed, "eager q1": eager}
     for name in KERNELS:
         if name not in captured:
             fail(f"{name}: the {paths[name]} gave it no input to compare on")
@@ -903,13 +1142,15 @@ def time_kernel(mods, name, args, captured=None) -> dict:
     }
 
 
-def timing(mods, captured, launches, errors, paths, k5_shapes):
+def timing(mods, captured, launches, eager_launches, errors, paths, k5_shapes):
     """One record per kernel, timed on the largest input of its path; K5's
-    record also holds its other shapes, each timed the same way."""
+    record also holds its other shapes, each timed the same way.
+    `eager_launches` is the kernel's count on the eager path."""
     records = []
     for name, (_m, source, replaces) in KERNELS.items():
         rec = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-               "launches": launches[name], "path": paths[name],
+               "launches": launches[name], "eager_launches": eager_launches[name],
+               "path": paths[name],
                "parity": "exact", "max_abs_err": errors[name]}
         rec.update(time_kernel(mods, name, captured[name], captured))
         if name == "intersect":
@@ -935,7 +1176,8 @@ def cold_breakdown(workloads, sync):
     for name, q, rels in (("q1_triangle", q1, q1_rels), ("star_lowsel", star, star_rels)):
         fresh = {a: Relation(r.name, dict(r.columns)) for a, r in rels.items()}
         t0 = time.perf_counter()
-        runner, _tree = _acquire_runner(q, fresh, None, agg="count", options=opts)
+        runner, _rels, _cacheable, _tree = _acquire_runner(q, fresh, None, agg="count",
+                                                           options=opts)
         t1 = time.perf_counter()
         data = {}
         for a in sorted(_base_aliases(runner.stages)):
@@ -1000,6 +1242,9 @@ def main(argv=None) -> int:
     (q1_seen, replay_seen), _ = drive("streaming path", JOIN_KERNELS, lambda: (
         streaming_triangle(device, args.seed, sf=10, sync=sync),
         stage_replay(device, args.seed, sync=sync)))
+    eager_ref = eager_oracles(args.seed, workloads, sync)
+    eager_seen, eager_launches = drive("eager path", JOIN_KERNELS, eager_path, device,
+                                       args.seed, workloads, eager_ref, sync)
     k5_args, k5_counts = drive("intersect path", ("intersect",), intersect_path,
                                workloads[1]["K1"], device)
     launches["intersect"], paths["intersect"] = k5_counts["intersect"], "intersect path"
@@ -1008,9 +1253,10 @@ def main(argv=None) -> int:
     captured["intersect"] = k5_args
     k5_shapes = intersect_shapes(args.seed, device)
     errors = parity(mods, captured, {"standing-q1 ingest": q1_seen,
-                                     "stage replay": replay_seen}, paths, k5_shapes, device)
+                                     "stage replay": replay_seen}, eager_seen, paths,
+                    k5_shapes, device)
     cold_breakdown(workloads, sync)
-    kernels = timing(mods, captured, launches, errors, paths, k5_shapes)
+    kernels = timing(mods, captured, launches, eager_launches, errors, paths, k5_shapes)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,

@@ -1,7 +1,15 @@
 # Free Join (Wang, Willsey, Suciu — SIGMOD 2023) on PyTorch: plans
-# (binary2fj + factor), the optimizer, the capacity planner and the
-# static-shape compiled path.
-from repro_torch.core.api import ExecOptions, compiled_free_join, to_sorted_tuples
+# (binary2fj + factor), the optimizer, COLT and the vectorized eager
+# engine with its baselines, the capacity planner and the static-shape
+# compiled path.
+from repro_torch.core.api import (
+    ExecOptions,
+    binary_join,
+    compiled_free_join,
+    free_join,
+    generic_join,
+    to_sorted_tuples,
+)
 from repro_torch.core.capacity import (
     CapacityPlan,
     ChainCapacityPlan,
@@ -9,6 +17,7 @@ from repro_torch.core.capacity import (
     plan_capacities,
     plan_chain_capacities,
 )
+from repro_torch.core.colt import Colt
 from repro_torch.core.compiled import (
     TRIE_CACHE,
     AdaptiveExecutor,
@@ -16,6 +25,7 @@ from repro_torch.core.compiled import (
     make_chain_executor,
     make_executor,
 )
+from repro_torch.core.engine import ExecStats, execute, materialize
 from repro_torch.core.optimizer import JoinOrderOptimizer, Stats, optimize
 from repro_torch.core.plan import BinaryPlan, FreeJoinPlan, Subatom, binary2fj, factor, linear
 from repro_torch.core.relcache import FEEDBACK, CardFeedback
@@ -26,7 +36,9 @@ __all__ = [
     "CapacityPlan",
     "CardFeedback",
     "ChainCapacityPlan",
+    "Colt",
     "ExecOptions",
+    "ExecStats",
     "FEEDBACK",
     "FreeJoinPlan",
     "JoinOrderOptimizer",
@@ -36,11 +48,16 @@ __all__ = [
     "TRIE_CACHE",
     "agm_bound",
     "binary2fj",
+    "binary_join",
     "compiled_free_join",
+    "execute",
     "factor",
+    "free_join",
+    "generic_join",
     "linear",
     "make_chain_executor",
     "make_executor",
+    "materialize",
     "optimize",
     "plan_capacities",
     "plan_chain_capacities",

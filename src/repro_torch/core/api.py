@@ -1,26 +1,46 @@
-"""Top-level driver of the port: the compiled Free Join query.
+"""Top-level drivers of the port: Free Join, Generic Join, binary hash
+join, and the compiled Free Join query.
 
-`compiled_free_join` runs the *whole* stage chain of a query as one device
-program: query -> cost-based binary plan -> per-stage binary2fj + factor
--> capacity.plan_chain_capacities -> one compiled.AdaptiveExecutor call.
-Non-root stages execute with the same static-shape executor as the root
-(agg=None), their output columns stay on the device as padded,
-mult-weighted buffers, and the next stage builds its trie straight from
-that buffer. No manual capacities: per-stage buffer sizes come from the
-optimizer's estimates capped by the AGM bound, and any stage's overflow is
-recovered by growing exactly the offending node and re-running the chain.
+Each driver takes a query, relations, and a binary plan (tree). Bushy plans
+are decomposed into left-deep stages (Sec 2.2). The eager drivers
+(`free_join`, `binary_join`, `generic_join`) run every stage on the
+vectorized engine (core/engine.py, COLT tries on the device) and
+materialize every non-root stage into a fresh host relation before its
+parent runs — the paper's (intentionally simple) materialization strategy.
+They run on the card unless `device="cpu"` is given.
 
-A device error propagates to the caller; there is no host fallback.
+`compiled_free_join` (or `free_join(compiled=True)`) instead runs the
+*whole* stage chain as one device program: query -> cost-based binary
+plan -> per-stage binary2fj + factor -> capacity.plan_chain_capacities ->
+one compiled.AdaptiveExecutor call. Non-root stages execute with the same
+static-shape executor as the root (agg=None), their output columns stay on
+the device as padded, mult-weighted buffers, and the next stage builds its
+trie straight from that buffer. No manual capacities: per-stage buffer
+sizes come from the optimizer's estimates capped by the AGM bound, and any
+stage's overflow is recovered by growing exactly the offending node and
+re-running the chain. `ExecOptions(chain_stages=False)` keeps the hybrid
+(non-root stages on the eager engine, root compiled) as a baseline.
+
+A device error propagates to the caller; there is no fallback from one
+path to another.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
-from repro_torch.core import relcache
-from repro_torch.core.optimizer import FilteredStats, JoinOrderOptimizer, Stats
-from repro_torch.core.plan import BinaryPlan, stage_plans
+from repro_torch.core import engine, relcache
+from repro_torch.core.engine import materialize
+from repro_torch.core.optimizer import FilteredStats, JoinOrderOptimizer, Stats, optimize
+from repro_torch.core.plan import (
+    BinaryPlan,
+    FreeJoinPlan,
+    gj_plan,
+    stage_plans,
+    var_order_from_fj,
+)
 from repro_torch.relational.relation import Relation
 from repro_torch.relational.schema import Atom, Query
 
@@ -40,11 +60,13 @@ class ExecOptions:
     1 (default) enumerates bushy candidates by dynamic programming, ranks
     them with the device cost model and pins the winner for the life of
     the relations, 2 enumerates exhaustively and re-plans when measured
-    cardinalities contradict the estimates (optimizer.JoinOrderOptimizer).
+    cardinalities contradict the estimates (optimizer.JoinOrderOptimizer);
+    chain_stages: run every stage of a bushy plan on the compiled path
+    (False = the hybrid baseline: non-root stages on the eager engine of
+    free_join, on the same device, the root compiled).
 
-    chain_stages=False (the hybrid baseline with eager host stages) and
-    verify=True (the static plan verifier) are not available in the port
-    yet and raise NotImplementedError."""
+    verify=True (the static plan verifier) is not available in the port
+    yet and raises NotImplementedError."""
 
     device: str = "cuda"
     budget: int = 32
@@ -55,10 +77,6 @@ class ExecOptions:
     verify: bool = False
 
     def __post_init__(self):
-        if not self.chain_stages:
-            raise NotImplementedError(
-                "chain_stages=False needs the eager engine, which the port does not have yet"
-            )
         if self.verify:
             raise NotImplementedError("verify=True needs the plan verifier, not ported yet")
 
@@ -84,6 +102,152 @@ def _runner_key(stages, rels, base, agg, options, filter_vars):
     )
 
 
+def _run_stages(
+    query: Query,
+    relations: dict[str, Relation],
+    plan_tree: BinaryPlan,
+    *,
+    fj_mode: str,
+    factorize: bool,
+    dynamic_cover: bool,
+    agg,
+    stats: engine.ExecStats | None,
+    device,
+):
+    """Eager stage driver: every stage runs on the vectorized engine,
+    non-root stage outputs are materialized into fresh host relations. The
+    compiled driver (compiled_free_join) shares stage_plans but routes
+    *all* stages through the static-shape executor instead."""
+    rels = dict(relations)
+    result = None
+    for name, fj in stage_plans(query, plan_tree, factorize=factorize):
+        is_root = name == "__root"
+        out = engine.execute(
+            fj,
+            rels,
+            mode=_trie_modes(fj, fj_mode),
+            dynamic_cover=dynamic_cover and factorize,
+            agg=agg if is_root else None,
+            stats=stats,
+            device=device,
+        )
+        if is_root:
+            result = out
+        else:
+            bound, mult = out
+            rels[name] = Relation(name, materialize(bound, mult, fj.query.head))
+    return result
+
+
+def _trie_modes(fj: FreeJoinPlan, fj_mode: str) -> dict[str, str]:
+    """Per-relation trie mode. For the binary-join baseline ("binary"):
+    hash tables are built eagerly for every probed relation, while pure
+    covers (only iterated, single level) build nothing."""
+    parts = fj.partitions()
+    if fj_mode != "binary":
+        return {a: fj_mode for a in parts}
+    probed = set()
+    for node in fj.nodes:
+        for sa in node[1:]:
+            if sa.vars:
+                probed.add(sa.alias)
+    return {a: ("simple" if a in probed else "colt") for a in parts}
+
+
+def _apply_filters_eager(
+    query: Query, relations: dict[str, Relation], filters: dict[str, int]
+) -> dict[str, Relation]:
+    """Eager-path equality selections: every atom containing a filtered var
+    is pre-selected to the rows matching the constant (joins equate the var
+    across atoms, so this is exactly sigma_{v=c} of the query result)."""
+    unknown = set(filters) - set(query.variables)
+    if unknown:
+        raise ValueError(f"filter vars not in the query: {sorted(unknown)}")
+    rels = dict(relations)
+    for a in query.atoms:
+        sel = [v for v in a.vars if v in filters]
+        if not sel:
+            continue
+        rel = rels[a.alias]
+        mask = np.ones(rel.num_rows, bool)
+        for v in sel:
+            mask &= rel.columns[v] == filters[v]
+        rels[a.alias] = rel.select(mask)
+    return rels
+
+
+def free_join(
+    query: Query,
+    relations: dict[str, Relation],
+    plan_tree: BinaryPlan | None = None,
+    *,
+    mode: str = "colt",
+    agg: str | None = None,
+    dynamic_cover: bool = True,
+    stats: engine.ExecStats | None = None,
+    compiled: bool = False,
+    filters: dict[str, int] | None = None,
+    options: ExecOptions | None = None,
+    device="cuda",
+):
+    """The full Free Join system: cost-based binary plan -> binary2fj ->
+    factor -> COLT + vectorized execution (the paper's Sec 5
+    configuration), on `device`.
+
+    compiled=True instead runs the whole plan on the static-shape executor
+    with planner-derived capacities (see compiled_free_join, which also
+    accepts `options`). The eager-only knobs are rejected loudly on the
+    compiled path — `mode` and `dynamic_cover` have no compiled equivalent
+    and `stats` (engine.ExecStats) measures the eager engine; silently
+    dropping them would misreport what ran. There the device comes from
+    `options`, and a `device` that differs from options.device raises.
+
+    filters: equality selections {var: constant}, applied on either path
+    (sigma_{v=c} over the join result). options: compiled-path ExecOptions
+    (invalid on the eager path). Returns an int for agg="count", else
+    (bound, mult) as int64 host numpy arrays."""
+    if compiled:
+        dropped = []
+        if mode != "colt":
+            dropped.append(f"mode={mode!r}")
+        if dynamic_cover is not True:
+            dropped.append(f"dynamic_cover={dynamic_cover!r}")
+        if stats is not None:
+            dropped.append("stats (use compiled_free_join(info=...) instead)")
+        if dropped:
+            raise ValueError(
+                "free_join(compiled=True) does not honor the eager-path "
+                "arguments " + ", ".join(dropped)
+            )
+        if options is None:
+            options = ExecOptions(device=device)
+        elif torch.device(options.device) != torch.device(device):
+            raise ValueError(
+                f"free_join(compiled=True): device={device!r} differs from "
+                f"options.device={options.device!r}"
+            )
+        return compiled_free_join(
+            query, relations, plan_tree, agg=agg, filters=filters, options=options
+        )
+    if options is not None:
+        raise ValueError("options=ExecOptions(...) applies to the compiled path only")
+    if filters:
+        relations = _apply_filters_eager(query, relations, filters)
+    if plan_tree is None:
+        plan_tree = optimize(query, relations)
+    return _run_stages(
+        query,
+        relations,
+        plan_tree,
+        fj_mode=mode,
+        factorize=True,
+        dynamic_cover=dynamic_cover,
+        agg=agg,
+        stats=stats,
+        device=device,
+    )
+
+
 def _acquire_runner(
     query: Query,
     relations: dict[str, Relation],
@@ -102,8 +266,11 @@ def _acquire_runner(
     relation identities. `filter_vars` builds a constant-parameterized
     executor, capacity-planned with FilteredStats for the selected slice.
 
-    Returns (runner, plan_tree): plan_tree is the binary plan actually
-    chosen (the caller's, or the optimizer's)."""
+    Returns (runner, rels, cacheable, plan_tree): rels is the relation dict
+    the runner should execute over (the hybrid baseline materializes its
+    eager stages into it), cacheable=False marks hybrid multi-stage runs
+    whose per-call stage relations make caching useless, and plan_tree is
+    the binary plan actually chosen (the caller's, or the optimizer's)."""
     from repro_torch.core.capacity import plan_chain_capacities
     from repro_torch.core.compiled import AdaptiveExecutor, _base_aliases
 
@@ -120,9 +287,24 @@ def _acquire_runner(
             feedback=relcache.FEEDBACK,
         ).choose(query, rels, stats=stats)
     stages = stage_plans(query, plan_tree)
+    # the hybrid path materializes fresh stage relations per call — a cache
+    # entry keyed on them could never hit (and its put would evict a live
+    # runner), so don't store one
+    cacheable = options.chain_stages or len(stages) == 1
+    if not cacheable:
+        if filter_vars:
+            raise ValueError("filters require chain_stages=True (the hybrid "
+                             "baseline's eager stages cannot parameterize constants)")
+        # hybrid baseline: non-root stages on the eager engine, root compiled
+        for name, fj in stages[:-1]:
+            bound, mult = engine.execute(
+                fj, rels, mode=_trie_modes(fj, "colt"), agg=None, device=options.device
+            )
+            rels[name] = Relation(name, materialize(bound, mult, fj.query.head))
+        stages = stages[-1:]
     base = sorted(_base_aliases(stages))
     key = _runner_key(stages, rels, base, agg, options, filter_vars)
-    runner = _runner_cache.get(key)
+    runner = _runner_cache.get(key) if cacheable else None
     if runner is None:
         pstats = stats
         if filter_vars:
@@ -154,8 +336,9 @@ def _acquire_runner(
             tighten=True,
             filter_vars=filter_vars,
         )
-        _runner_cache.put(key, runner, [rels[a] for a in base])
-    return runner, plan_tree
+        if cacheable:
+            _runner_cache.put(key, runner, [rels[a] for a in base])
+    return runner, rels, cacheable, plan_tree
 
 
 def compiled_free_join(
@@ -183,6 +366,11 @@ def compiled_free_join(
     through a constant-parameterized executor: every call with the same
     filtered VARS, whatever the constants, reuses one runner.
 
+    ExecOptions(chain_stages=False) runs the hybrid baseline instead: the
+    non-root stages of a bushy plan on the eager engine (free_join's), on
+    the same device, their outputs materialized into host relations, and
+    the root compiled over them.
+
     Returns a count for agg="count" (an int, summed in int64), else
     (bound, mult) host numpy arrays over live rows. `info`, if given,
     receives the runner, capacity plan, retry/reshape/compile counters, the
@@ -193,13 +381,16 @@ def compiled_free_join(
     if unknown:
         raise ValueError(f"filter vars not in the query: {sorted(unknown)}")
     filter_vars = tuple(sorted(filters))
-    runner, chosen_tree = _acquire_runner(
+    runner, rels, cacheable, chosen_tree = _acquire_runner(
         query, relations, plan_tree, agg=agg, options=opts, filter_vars=filter_vars
     )
     consts = (
         np.asarray([filters[v] for v in filter_vars], np.int32) if filter_vars else None
     )
-    out = runner.run_relations(dict(relations), filter_consts=consts)
+    # the hybrid baseline's stage relations are fresh every call: its
+    # root builds its tries in the run (caching would only insert
+    # dead-on-arrival entries)
+    out = runner.run_relations(rels, reuse_tries=cacheable, filter_consts=consts)
     if info is not None:
         info.update(
             runner=runner,
@@ -213,15 +404,60 @@ def compiled_free_join(
     return out
 
 
-def materialize(bound: dict[str, np.ndarray], mult: np.ndarray, head) -> dict[str, np.ndarray]:
-    """Expand multiplicities into physical duplicate rows (bag output)."""
-    if len(mult) == 0:
-        # empty result: later nodes may never have bound their vars
-        return {v: bound.get(v, np.zeros(0, dtype=np.int64)) for v in head}
-    if mult.max(initial=1) > 1:
-        idx = np.repeat(np.arange(len(mult)), mult)
-        return {v: bound[v][idx] for v in head}
-    return {v: bound[v] for v in head}
+def binary_join(
+    query: Query,
+    relations: dict[str, Relation],
+    plan_tree: BinaryPlan | None = None,
+    *,
+    agg: str | None = None,
+    stats: engine.ExecStats | None = None,
+    device="cuda",
+):
+    """Baseline 1: classic binary hash join == the unfactored binary2fj plan
+    with eagerly-built hash tables (Sec 5.3: 'if we do not optimize the Free
+    Join plan ... Free Join would behave identically to binary join')."""
+    if plan_tree is None:
+        plan_tree = optimize(query, relations)
+    return _run_stages(
+        query,
+        relations,
+        plan_tree,
+        fj_mode="binary",
+        factorize=False,
+        dynamic_cover=False,
+        agg=agg,
+        stats=stats,
+        device=device,
+    )
+
+
+def generic_join(
+    query: Query,
+    relations: dict[str, Relation],
+    var_order: list[str] | None = None,
+    plan_tree: BinaryPlan | None = None,
+    *,
+    agg: str | None = None,
+    stats: engine.ExecStats | None = None,
+    device="cuda",
+):
+    """Baseline 2: Generic Join — full trie construction for every relation,
+    variable-at-a-time plan. Variable order defaults to the one induced by
+    the Free Join plan (Sec 5.1)."""
+    if var_order is None:
+        if plan_tree is None:
+            plan_tree = optimize(query, relations)
+        order: list[str] = []
+        for _name, fj in stage_plans(query, plan_tree):
+            for v in var_order_from_fj(fj):
+                if v not in order:
+                    order.append(v)
+        var_order = [v for v in order if v in query.variables]
+    plan = gj_plan(query, var_order)
+    return engine.execute(
+        plan, relations, mode="simple", dynamic_cover=True, agg=agg, stats=stats,
+        device=device,
+    )
 
 
 def to_sorted_tuples(result, head) -> list:

@@ -230,3 +230,49 @@ def test_delta_merge_and_retire_on_card_match_cpu(cuda, rng):
                 assert torch.equal(g.cpu(), c), name
         for g, c in zip(gpu.tables, cpu.tables):
             assert torch.equal(g.slots.cpu(), c.slots)
+
+
+ENGINES = ("free_join", "binary_join", "generic_join")
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+def test_eager_engine_on_card_matches_cpu(cuda, engine, rng):
+    """The eager engines on the card give the CPU's (bound, mult), element
+    for element, and the count; each of K1-K4 launches on the way."""
+    from repro_torch import core
+
+    run = getattr(core, engine)
+    q = triangle_query()
+    rels = {a.alias: Relation(a.alias, {v: rng.integers(0, 60, 5000) for v in a.vars})
+            for a in q.atoms}
+    sq, srels = lowsel_star(n=50_000, dom=5_000, sel=0.02, seed=3)
+    mods = (hash_probe, csr_expand, compact, radix_sort)
+    for query, relations in ((q, rels), (sq, srels)):
+        before = [m.launches for m in mods]
+        got = run(query, relations, device="cuda")
+        launched = [m.launches - b for m, b in zip(mods, before)]
+        want = run(query, relations, device="cpu")
+        assert set(got[0]) == set(want[0])
+        for v in want[0]:
+            np.testing.assert_array_equal(got[0][v], want[0][v])
+        np.testing.assert_array_equal(got[1], want[1])
+        assert run(query, relations, agg="count", device="cuda") == int(want[1].sum())
+        assert all(n > 0 for n in launched[:2]), launched
+        if query is q:
+            assert all(n > 0 for n in launched), f"K1-K4 launches {launched}"
+
+
+def test_hybrid_baseline_on_card_matches_cpu(cuda, rng):
+    from repro_torch.core.plan import BinaryPlan
+    from repro_torch.relational.schema import Atom, Query
+
+    q = Query([Atom("A", ("x", "y")), Atom("B", ("y", "z")), Atom("C", ("z", "w")),
+               Atom("D", ("w", "u"))])
+    tree = BinaryPlan(BinaryPlan(q.atoms[0], q.atoms[1]), BinaryPlan(q.atoms[2], q.atoms[3]))
+    rels = {a.alias: Relation(a.alias, {v: rng.integers(0, 300, 4000) for v in a.vars})
+            for a in q.atoms}
+    got = compiled_free_join(q, rels, tree, options=ExecOptions(device="cuda",
+                                                                chain_stages=False))
+    assert got == compiled_free_join(q, rels, tree, options=ExecOptions(device="cpu",
+                                                                        chain_stages=False))
+    assert got == compiled_free_join(q, rels, tree, options=ExecOptions(device="cuda"))

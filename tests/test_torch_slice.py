@@ -196,6 +196,4 @@ def test_overflow_retry_from_undersized_plan(rng):
 
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
-        ExecOptions(chain_stages=False)
-    with pytest.raises(NotImplementedError):
         ExecOptions(verify=True)
