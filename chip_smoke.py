@@ -33,6 +33,44 @@ Phases (any failure raises, and the script exits non-zero):
      compiled_free_join over fresh copies and the T-U stage was replayed;
      the final count equals the numpy oracle; sustained updates and rows
      per second.
+  3a. Serving path (counters set to 0 before, read after; K1-K4 must
+     launch): repro_torch.serve.JoinServeEngine (slots = 16) against serial
+     compiled_free_join, on the main path's `knows` at SF 10. Two
+     templates, friends of friends (knows(a,b), knows(b,c), an LDBC SNB
+     Interactive-style 2-hop point query) and LSQB q1's triangle, each
+     with a = c; 16 tenants spell each with their own aliases and atom
+     order; 256 requests alternate between the templates, constants
+     Zipf(1.3)-skewed over the persons with friends (hubs recur). The
+     trace is drained through the engine (mask-mode batched dispatches)
+     and serially (one kill-mode compiled_free_join(filters=) a request),
+     each once to warm and once timed; every result equals an independent
+     numpy oracle (2-hop: the sum of out-degree(y) over c's rows;
+     triangle: sorted-set intersection) and the two drains equal each
+     other. Per drain: queries/s, p50/p99 latency, dispatches, K1-K5
+     launches, peak MiB; degraded and faults_absorbed must be 0. For one
+     warm batched dispatch of each template beside one warm unfiltered
+     call: host syncs, host ms and device ms; for the triangle's, its
+     device idle share and host functions (torch.profiler, cProfile).
+     Then the stage replay's
+     4-chain as a batched template (slots = 8) with 8 constants on e,
+     bound only in the T-U stage (the per-lane path), each count held
+     against chain4_oracle. The `serving:` line holds it all.
+  3b. Chaos path (counters set to 0 before, read after): q1 at SF 1
+     through JoinServeEngine(slots = 8), 8 requests, each case on a fresh
+     runner cache: one fault of each kind armed once (compile_fail, also
+     three times to reach the eager rung; device_oom; slow_dispatch with
+     a 20 ms deadline on a request of the other template; overflow_storm
+     on lane 2; mutation_skew), and once under a memory budget of a
+     quarter of the bytes of the tries it reads. Every request is
+     answered and equals the oracle (or is the one evicted / reaped
+     request). Then a StandingQueryEngine(engine=...) on the triangle and
+     on friends of friends of the busiest person (a count that is not
+     0), with a device_oom in the refresh of each: the eager engine on
+     the card answers (degraded_to "eager"), the next refresh is
+     compiled again.
+     The `chaos:` line holds each case's rungs and counters. After it the
+     main path's queries are planned again (the serial drain's 32
+     spellings fill the runner cache).
   4. Eager path (counters set to 0 before, read after; K1-K4 must launch):
      the eager engine on the card. LSQB q1 at SF 10 (the main path's
      `knows`) through free_join in modes colt, slt and simple,
@@ -55,8 +93,9 @@ Phases (any failure raises, and the script exits non-zero):
      card, on the largest input of each kind its paths give it (the main
      path's; for K1-K4 also one standing-q1 ingest's, with 16,384-row
      delta sorts and probes of the merged 2,097,152-row tables, the
-     stage replay's registration and first batch, and one eager
-     free_join(agg=None) of q1 at SF 10) plus edge cases (a ragged
+     stage replay's registration and first batch, one batched dispatch
+     of each serving template, and one eager free_join(agg=None) of q1 at
+     SF 10) plus edge cases (a ragged
      size, a one-row table or key set, all -1 lanes, total = 0, all hits,
      all misses, keys outside the key range; for K2 and K3 the shapes a
      tiled merge gets wrong: a hub row over 100,000 slots, 50,000 empty
@@ -77,8 +116,9 @@ Phases (any failure raises, and the script exits non-zero):
      torch.profiler after warm-up (all kernels of one call summed),
      beside the least time the card could take (bound); CUDA-event wall
      times per call beside them. K5's record holds its two other shapes
-     under "shapes"; every record its launches on its path ("launches")
-     and on the eager path ("eager_launches").
+     under "shapes"; every record its launches on its path ("launches"),
+     on the eager path ("eager_launches"), the serving path
+     ("serving_launches") and the chaos path ("chaos_launches").
 
 The last line is {"ok": true, "device": {...}}; the line before it the
 `kernels` JSON record, and before that the card's name and power limit.
@@ -91,7 +131,7 @@ import json
 import subprocess
 import sys
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
 import numpy as np
@@ -515,13 +555,420 @@ def stage_replay(device: str, seed: int, sync, n: int = 60_000, dom: int = 4_000
 
 
 # ---------------------------------------------------------------------------
+# the serving path: JoinServeEngine against serial compiled_free_join
+# ---------------------------------------------------------------------------
+
+
+def point_oracles(knows):
+    """Independent numpy answers per person c of the two serving templates
+    over knows(a, b): friends of friends, knows(a,b), knows(b,c) with a = c
+    (the sum of out-degree(y) over the rows (c, y)), and LSQB q1's triangle
+    with a = c (for each row (c, y), the rows (y, z) whose z is a source of
+    a row (z, c), by sorted-set intersection; bag semantics throughout).
+    Returns (fof counts per person, triangle(c) function, persons with
+    friends by out-degree, hubs first)."""
+    a = knows.columns["a"].astype(np.int64)
+    b = knows.columns["b"].astype(np.int64)
+    width = int(max(a.max(), b.max())) + 2
+    out_deg = np.bincount(a, minlength=width)
+    fof = np.zeros(width, np.int64)
+    np.add.at(fof, a, out_deg[b])
+    by_a = np.argsort(a, kind="stable")
+    b_s = b[by_a]
+    starts = np.searchsorted(a[by_a], np.arange(width + 1))
+    by_b = np.argsort(b, kind="stable")
+    a_by_b = a[by_b]
+    in_starts = np.searchsorted(b[by_b], np.arange(width + 1))
+
+    def triangle_at(c: int) -> int:
+        ys = b_s[starts[c]:starts[c + 1]]
+        zs, zc = np.unique(a_by_b[in_starts[c]:in_starts[c + 1]], return_counts=True)
+        if not len(ys) or not len(zs):
+            return 0
+        lo = starts[ys]
+        cnt = starts[ys + 1] - lo
+        idx = np.repeat(lo, cnt) + np.arange(int(cnt.sum())) - np.repeat(np.cumsum(cnt) - cnt,
+                                                                         cnt)
+        z = b_s[idx]
+        pos = np.clip(np.searchsorted(zs, z), 0, len(zs) - 1)
+        return int(np.where(zs[pos] == z, zc[pos], 0).sum())
+
+    persons = np.flatnonzero(out_deg)
+    persons = persons[np.argsort(-out_deg[persons], kind="stable")]
+    return fof, triangle_at, persons
+
+
+def serving_trace(q1_rels, persons, seed: int, tenants: int = 16, requests: int = 256):
+    """The serving trace over the main path's three views of knows: two
+    templates, friends of friends (knows(a,b), knows(b,c), a LDBC SNB
+    Interactive-style 2-hop point query) and LSQB q1's triangle, each with
+    a = c; every tenant spells each with its own aliases and atom order
+    (as benchmarks/bench_serving.py does). Requests alternate between the
+    templates; tenant i // 2 mod 16; constants Zipf(1.3)-skewed over the
+    persons with friends, hubs first, so hubs recur. Returns
+    [(tenant, template, query, relations, filters)]."""
+    from repro_torch.relational.schema import Atom, Query
+
+    rng = np.random.default_rng(seed + 4)
+    shapes = {"fof": (("K1", ("a", "b")), ("K2", ("b", "c"))),
+              "q1": (("K1", ("a", "b")), ("K2", ("b", "c")), ("K3", ("c", "a")))}
+    spelled = {}
+    for t in range(tenants):
+        for name, atoms in shapes.items():
+            mine = [Atom("knows", vs, f"t{t}_{alias}") for alias, vs in atoms]
+            q = Query([mine[i] for i in rng.permutation(len(mine))])
+            spelled[t, name] = (q, {f"t{t}_{alias}": q1_rels[alias] for alias, _ in atoms})
+    consts = persons[(rng.zipf(1.3, requests) - 1) % len(persons)]
+    trace = []
+    for i, c in enumerate(consts):
+        t, name = (i // 2) % tenants, ("fof", "q1")[i % 2]
+        trace.append((f"tenant{t}", name, *spelled[t, name], {"a": int(c)}))
+    return trace
+
+
+def drain_serial(trace, opts):
+    """One kill-mode compiled_free_join per request, in arrival order; each
+    ends in its count's read-back. Returns (per-request s, results)."""
+    from repro_torch.core import compiled_free_join
+
+    lat, out = [], []
+    for _tenant, _name, q, rels, filters in trace:
+        t = time.perf_counter()
+        out.append(compiled_free_join(q, rels, agg="count", filters=filters, options=opts))
+        lat.append(time.perf_counter() - t)
+    return lat, out
+
+
+def drain_batched(trace, opts, slots: int):
+    """The trace through one JoinServeEngine: every request submitted, then
+    step() until the queue is empty. A request's latency is its dispatch's
+    (every rider pays the whole batch; each step ends in the results'
+    read-back). Returns (per-request s, results, engine, per-template
+    dispatch s)."""
+    from repro_torch.serve import JoinServeEngine
+
+    eng = JoinServeEngine(slots=slots, options=opts)
+    reqs = [eng.submit(q, rels, filters, tenant=tenant) for tenant, _n, q, rels, filters in trace]
+    names = {id(r): name for r, (_t, name, *_rest) in zip(reqs, trace)}
+    lat, per_template = [], {"fof": [], "q1": []}
+    while eng.queue:
+        t = time.perf_counter()
+        retired = eng.step()
+        dt = time.perf_counter() - t
+        lat.extend([dt] * len(retired))
+        per_template[names[id(retired[0])]].append(dt)
+    for r in reqs:
+        if not r.done or r.error is not None:
+            fail(f"serving: request {r.rid} not answered ({r.error!r})")
+    return lat, [r.result for r in reqs], eng, per_template
+
+
+def serving_path(device: str, seed: int, workloads, sync, slots: int = 16):
+    """The serving phase (see the module docstring): the 256-request trace
+    drained through JoinServeEngine and serially, each drain once to warm
+    and once timed, every result held against the numpy oracle and the two
+    drains against each other; then the 4-chain as a batched template with
+    its filter in a non-root stage. Returns the kernels' largest inputs of
+    one warm batched dispatch of each template."""
+    import torch
+
+    from repro_torch.core import compiled_free_join
+    from repro_torch.serve import JoinServeEngine
+
+    q1, q1_rels, _star, _star_rels, opts = workloads
+    mods = kernel_modules()
+    fof, triangle_at, persons = point_oracles(q1_rels["K1"])
+    trace = serving_trace(q1_rels, persons, seed)
+    want, tri_memo = [], {}
+    for _t, name, _q, _r, filters in trace:
+        c = filters["a"]
+        if name == "fof":
+            want.append(int(fof[c]))
+        else:
+            want.append(tri_memo.setdefault(c, triangle_at(c)))
+    rec = {"requests": len(trace), "slots": slots, "tenants": 16,
+           "distinct_constants": len({f["a"] for *_x, f in trace}),
+           "hub_share": float(np.mean([f["a"] == persons[0] for *_x, f in trace]))}
+    results = {}
+    for mode in ("batched", "serial"):
+        t = time.perf_counter()
+        if mode == "batched":
+            drain_batched(trace, opts, slots)
+        else:
+            drain_serial(trace, opts)
+        sync()
+        cold_s = time.perf_counter() - t
+        before = {k: m.launches for k, m in mods.items()}
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        if mode == "batched":
+            lat, out, eng, per_template = drain_batched(trace, opts, slots)
+        else:
+            lat, out = drain_serial(trace, opts)
+        sync()
+        wall = time.perf_counter() - t
+        if out != want:
+            bad = [i for i, (g, w) in enumerate(zip(out, want)) if g != w]
+            fail(f"serving {mode}: {len(bad)} results differ from the oracle, first request "
+                 f"{bad[0]}: {out[bad[0]]} != {want[bad[0]]}")
+        results[mode] = out
+        r = {"warm_up_drain_s": cold_s, "wall_s": wall, "queries_per_s": len(trace) / wall,
+             "p50_ms": float(np.percentile(lat, 50)) * 1e3,
+             "p99_ms": float(np.percentile(lat, 99)) * 1e3,
+             "dispatches": eng.dispatches if mode == "batched" else len(trace),
+             "launches": {k: m.launches - before[k] for k, m in mods.items()},
+             "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
+        if mode == "batched":
+            r.update(degraded=eng.degraded, faults_absorbed=eng.faults_absorbed,
+                     deadline_rejected=eng.deadline_rejected,
+                     dispatch_ms_median={k: float(np.median(v)) * 1e3
+                                         for k, v in per_template.items()})
+            if sum(eng.degraded.values()) or eng.faults_absorbed:
+                fail(f"serving: degraded {eng.degraded}, {eng.faults_absorbed} faults absorbed")
+        rec[mode] = r
+    if results["batched"] != results["serial"]:
+        fail("serving: the batched and the serial drains differ")
+    rec["batched_over_serial_qps"] = (rec["batched"]["queries_per_s"]
+                                      / rec["serial"]["queries_per_s"])
+
+    # one warm batched dispatch of each template against one warm
+    # unfiltered call of the same query: host syncs, host ms, device ms
+    def one_dispatch(name):
+        eng = JoinServeEngine(slots=slots, options=opts)
+        picks = [x for x in trace if x[1] == name][:slots]
+
+        def step():
+            for tenant, _n, q, rels, filters in picks:
+                eng.submit(q, rels, filters, tenant=tenant)
+            eng.step()
+        return step
+
+    with capture_largest() as seen:
+        for name in ("fof", "q1"):
+            one_dispatch(name)()
+    _tenant, _name, q_fof, fof_rels, _filters = trace[0]  # requests start with fof
+    for name, q, rels in (("q1", q1, q1_rels), ("fof", q_fof, fof_rels)):
+        step = one_dispatch(name)
+        unfiltered = lambda q=q, rels=rels: compiled_free_join(q, rels, agg="count",
+                                                               options=opts)
+        unfiltered()
+        rec[f"{name}_one_dispatch"] = {
+            "host_syncs": sync_count(step),
+            "device_ms": device_ms(step, iters=5, warmup=1)[0],
+            "host_ms": wall_ms(step, iters=5, warmup=1),
+            "unfiltered_call_device_ms": device_ms(unfiltered, iters=5, warmup=1)[0],
+            "unfiltered_call_host_ms": wall_ms(unfiltered, iters=5, warmup=1),
+            "unfiltered_call_host_syncs": sync_count(unfiltered)}
+
+    def timed(fn):
+        def run():
+            t = time.perf_counter()
+            fn()
+            sync()
+            return (time.perf_counter() - t,)
+        return run
+
+    # where one warm batched q1 dispatch's time goes: device busy time and
+    # idle share (torch.profiler), host functions by own time (cProfile)
+    step = one_dispatch("q1")
+    step()
+    rec["q1_one_dispatch"]["profile"] = profile_run(timed(step), timed(step), top=6)
+
+    # the 4-chain as a batched template whose filter var e is bound only in
+    # the T-U stage: from that stage's output on, every lane runs alone
+    q, tree, rels = chain4_workload(seed)
+    rng = np.random.default_rng(seed + 5)
+    es = [int(e) for e in rng.choice(rels["U"].columns["e"], 8, replace=False)]
+    eng = JoinServeEngine(slots=8, options=opts)
+    reqs = [eng.submit(q, rels, {"e": e}, plan_tree=tree) for e in es]
+    t = time.perf_counter()
+    eng.run()
+    sync()
+    chain_s = time.perf_counter() - t
+    counts = []
+    for r, e in zip(reqs, es):
+        sel = rels["U"].columns["e"] == e
+        only = dict(rels, U=type(rels["U"])("U", {v: c[sel] for v, c in
+                                                  rels["U"].columns.items()}))
+        want_e = chain4_oracle(only)
+        if r.error is not None or r.result != want_e:
+            fail(f"serving chain4 e={e}: {r.result!r} ({r.error!r}) != oracle {want_e}")
+        counts.append(r.result)
+    rec["chain4_filter_e"] = {"constants": es, "counts": counts, "dispatches": eng.dispatches,
+                              "cold_s": chain_s, "degraded": eng.degraded}
+    print("serving: " + json.dumps(rec), flush=True)
+    return {name: args for name, (_size, args) in seen.items()}
+
+
+def rewarm(workloads):
+    """The serial drain's 32 tenant spellings fill the LRU runner cache
+    (32 entries): plan the main path's queries again, so the phases after
+    the serving path meet them warm, as before it."""
+    from repro_torch.core import compiled_free_join
+
+    q1, q1_rels, star, star_rels, opts = workloads
+    for q, rels, agg in ((q1, q1_rels, "count"), (q1, q1_rels, None), (star, star_rels, "count")):
+        compiled_free_join(q, rels, agg=agg, options=opts)
+
+
+def chaos_path(device: str, seed: int, sync, slots: int = 8, sf: float = 1):
+    """The chaos phase (see the module docstring): q1 at SF 1 through a
+    JoinServeEngine(slots=8) with 8 requests, one fault of each kind armed
+    at a time (each case on a fresh runner cache, so a new executor is
+    made), and once under a memory budget below the working set; then a
+    standing triangle and a standing friends-of-friends count sharing the
+    engine's options, with a device_oom in one refresh of each. Every
+    answer is held against the numpy oracle."""
+    import warnings
+
+    from repro_torch.core import ExecOptions, faults, membudget, relcache
+    from repro_torch.core.relcache import KeyedCache
+    from repro_torch.relational.datagen import knows_inserts, lsqb_knows, lsqb_q1
+    from repro_torch.relational.schema import Atom, Query
+    from repro_torch.serve import JoinServeEngine, StandingQueryEngine
+
+    opts = ExecOptions(device=device)
+    knows = lsqb_knows(sf=sf, seed=seed + 1)
+    q1, rels = lsqb_q1(knows)
+    fof_q = Query([Atom("knows", ("a", "b"), "K1"), Atom("knows", ("b", "c"), "K2")])
+    fof, triangle_at, persons = point_oracles(knows)
+    rng = np.random.default_rng(seed + 6)
+    consts = [int(c) for c in rng.choice(persons[:2000], slots, replace=False)]
+    want = {c: triangle_at(c) for c in consts}
+    faults.reset_stats()
+    cases = {}
+
+    def serve(kind=None, budget=None, deadline=False, **kw):
+        """The 8 requests through a fresh engine and runner cache with one
+        fault armed (or a memory budget, or nothing). With deadline=True
+        the last request is a friends-of-friends one (another template,
+        dispatched after the triangle's) with a 20 ms deadline."""
+        eng = JoinServeEngine(slots=slots, options=opts, cache=KeyedCache())
+        eng.backoff_base_ms = 0.5
+        if kind is not None:
+            arm = faults.inject(kind, **kw)
+        elif budget is not None:
+            arm = membudget.budget(budget)
+        else:
+            arm = nullcontext()
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            with arm as f:
+                reqs = [eng.submit(q1, rels, {"a": c}) for c in consts[:-1]]
+                if deadline:
+                    reqs.append(eng.submit(fof_q, {"K1": rels["K1"], "K2": rels["K2"]},
+                                           {"a": consts[-1]}, deadline_ms=20.0))
+                else:
+                    reqs.append(eng.submit(q1, rels, {"a": consts[-1]}))
+                t = time.perf_counter()
+                eng.run()
+                sync()
+                wall = time.perf_counter() - t
+                governed = membudget.GOVERNOR.live_bytes
+        if budget is not None and governed > budget:
+            fail(f"chaos memory_budget: {governed} governed bytes above the budget {budget}")
+        expected = [want[c] for c in consts[:-1]] + [
+            int(fof[consts[-1]]) if deadline else want[consts[-1]]]
+        rungs, errors = [], []
+        for r, c, w in zip(reqs, consts, expected):
+            if not r.done:
+                fail(f"chaos {kind or budget}: request {r.rid} not answered")
+            reason = getattr(r.error, "reason", None)
+            errors.append(None if r.error is None else f"{type(r.error).__name__}:{reason}")
+            rungs.append(r.degraded_to)
+            if r.error is None:
+                if r.result != w:
+                    fail(f"chaos {kind or budget}: a={c}: {r.result} != oracle {w}")
+            elif not ((kind == "overflow_storm" and type(r.error).__name__ ==
+                       "CapacityQuotaError") or (deadline and reason == "deadline")):
+                fail(f"chaos {kind or budget}: a={c} failed with {r.error!r}")
+        return {"fired": getattr(f, "fired", None), "rungs": rungs, "errors": errors,
+                "served": eng.served, "dispatches": eng.dispatches, "degraded": eng.degraded,
+                "faults_absorbed": eng.faults_absorbed,
+                "deadline_rejected": eng.deadline_rejected, "wall_s": wall,
+                "governed_bytes": governed,
+                "warnings": sorted({w.category.__name__ for w in seen})}
+
+    warm = serve()  # builds the SF 1 tries; no fault armed
+    if warm["faults_absorbed"] or any(warm["rungs"]):
+        fail(f"chaos: the fault-free warm-up degraded: {warm}")
+    cases["compile_fail"] = serve("compile_fail", times=1)
+    cases["compile_fail_x3"] = serve("compile_fail", times=3)
+    cases["device_oom"] = serve("device_oom", times=1)
+    cases["slow_dispatch"] = serve("slow_dispatch", deadline=True, times=1, delay_s=0.25)
+    cases["overflow_storm"] = serve("overflow_storm", times=1, lanes=(2,))
+    cases["mutation_skew"] = serve("mutation_skew", rel=knows)
+    # the governed bytes of the tries the triangle reads (the working set
+    # without the frontier); the budget is a quarter of it
+    gov = membudget.GOVERNOR
+    tries = sum(membudget.trie_nbytes(e["trie"]) for a in ("K1", "K2", "K3")
+                for e in relcache.REGISTRY.namespace(rels[a], "tries").values())
+    ev, sh = gov.evictions, gov.sheds
+    cases["memory_budget"] = serve(budget=tries // 4)
+    cases["memory_budget"].update(budget=tries // 4, tries_bytes=tries,
+                                  evictions=gov.evictions - ev, sheds=gov.sheds - sh)
+    expect = {"compile_fail": {"halved"}, "compile_fail_x3": {"eager"}, "device_oom": {"halved"}}
+    for kind, rungs in expect.items():
+        if set(cases[kind]["rungs"]) != rungs:
+            fail(f"chaos {kind}: rungs {cases[kind]['rungs']}, expected {rungs}")
+    if cases["slow_dispatch"]["deadline_rejected"] != 1:
+        fail("chaos slow_dispatch: the tight deadline was not reaped")
+    if sum(e is not None for e in cases["overflow_storm"]["errors"]) != 1:
+        fail("chaos overflow_storm: not exactly one lane evicted")
+
+    # a standing triangle sharing the engine's options: a device_oom in
+    # one refresh answers from the eager engine, the next goes back
+    views = [rels[a] for a in ("K1", "K2", "K3")]
+    st = StandingQueryEngine(engine=JoinServeEngine(slots=slots, options=opts))
+    sq = st.register(q1, rels, agg="count")
+    # beside it, friends of friends of the busiest person: a count that
+    # is not 0 whatever the draw
+    hub = int(persons[0])
+    sq_fof = st.register(fof_q, {"K1": rels["K1"], "K2": rels["K2"]}, {"a": hub})
+    edges = knows_inserts(sf, 2048, seed=seed + 7, table_seed=seed + 1)
+
+    def live_count():
+        live = relcache.live_relation(views[0])
+        return triangle_oracle(live.columns["a"], live.columns["b"])[0]
+
+    def live_fof():
+        return int(point_oracles(relcache.live_relation(views[0]))[0][hub])
+
+    def append(part):
+        for v in views[1:]:
+            relcache.append(v, {v.schema[0]: edges["a"][part], v.schema[1]: edges["b"][part]})
+        relcache.append(views[0], {"a": edges["a"][part], "b": edges["b"][part]})
+
+    append(slice(0, 1024))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        with faults.inject("device_oom", times=2) as f:  # one for each query's refresh
+            st.refresh()
+    standing = {"fired": f.fired, "degraded_refreshes": st.degraded_refreshes,
+                "after_fault": [(s.degraded_to, s.result, want) for s, want in
+                                ((sq, live_count()), (sq_fof, live_fof()))]}
+    append(slice(1024, 2048))
+    st.refresh()
+    standing["next_refresh"] = [(s.degraded_to, s.result, want) for s, want in
+                                ((sq, live_count()), (sq_fof, live_fof()))]
+    if (standing["fired"] != 2
+            or any(rung != "eager" or got != w for rung, got, w in standing["after_fault"])
+            or any(rung is not None or got != w for rung, got, w in standing["next_refresh"])):
+        fail(f"chaos standing: {standing}")
+    rec = {"sf": sf, "rows": knows.num_rows, "slots": slots, "constants": consts,
+           "cases": cases, "standing": standing, "firings": dict(faults.STATS)}
+    print("chaos: " + json.dumps(rec), flush=True)
+
+
+# ---------------------------------------------------------------------------
 # the eager path: free_join, binary_join, generic_join, the hybrid baseline
 # ---------------------------------------------------------------------------
 
 
 def sync_count(fn) -> int:
     """Host synchronizations `fn` makes: the warnings of
-    torch.cuda.set_sync_debug_mode("warn"), one per synchronizing call."""
+    torch.cuda.set_sync_debug_mode("warn"), one per synchronizing call
+    (torch's one-time notice that the mode is a prototype is not one)."""
     import warnings
 
     import torch
@@ -533,7 +980,7 @@ def sync_count(fn) -> int:
             fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return sum("synchroniz" in str(w.message) for w in seen)
+    return sum("called a synchronizing CUDA operation" in str(w.message) for w in seen)
 
 
 def timed_calls(name, fn, want, sync, reps: int = 3) -> dict:
@@ -1142,14 +1589,16 @@ def time_kernel(mods, name, args, captured=None) -> dict:
     }
 
 
-def timing(mods, captured, launches, eager_launches, errors, paths, k5_shapes):
+def timing(mods, captured, launches, other_launches, errors, paths, k5_shapes):
     """One record per kernel, timed on the largest input of its path; K5's
     record also holds its other shapes, each timed the same way.
-    `eager_launches` is the kernel's count on the eager path."""
+    `other_launches` maps a record key ("eager_launches", ...) to the
+    kernels' counts on that path."""
     records = []
     for name, (_m, source, replaces) in KERNELS.items():
         rec = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-               "launches": launches[name], "eager_launches": eager_launches[name],
+               "launches": launches[name],
+               **{key: counts[name] for key, counts in other_launches.items()},
                "path": paths[name],
                "parity": "exact", "max_abs_err": errors[name]}
         rec.update(time_kernel(mods, name, captured[name], captured))
@@ -1226,9 +1675,11 @@ def main(argv=None) -> int:
         read just after; fail if a kernel of the path never launched."""
         for m in mods.values():
             m.launches = 0
+        t = time.perf_counter()
         out = fn(*fargs, **fkw)
         counts = {name: m.launches for name, m in mods.items()}
         print(f"{path} launches: " + json.dumps(counts), flush=True)
+        print(f"{path} took {time.perf_counter() - t:.1f} s", flush=True)
         for name in kernels:
             if counts[name] <= 0:
                 fail(f"{name}: the {path} never launched the kernel")
@@ -1242,6 +1693,11 @@ def main(argv=None) -> int:
     (q1_seen, replay_seen), _ = drive("streaming path", JOIN_KERNELS, lambda: (
         streaming_triangle(device, args.seed, sf=10, sync=sync),
         stage_replay(device, args.seed, sync=sync)))
+    # the serving path: batched and serial drains at SF 10, then chaos at SF 1
+    serving_seen, serving_launches = drive("serving path", JOIN_KERNELS, serving_path, device,
+                                           args.seed, workloads, sync)
+    _, chaos_launches = drive("chaos path", JOIN_KERNELS, chaos_path, device, args.seed, sync)
+    rewarm(workloads)
     eager_ref = eager_oracles(args.seed, workloads, sync)
     eager_seen, eager_launches = drive("eager path", JOIN_KERNELS, eager_path, device,
                                        args.seed, workloads, eager_ref, sync)
@@ -1253,10 +1709,14 @@ def main(argv=None) -> int:
     captured["intersect"] = k5_args
     k5_shapes = intersect_shapes(args.seed, device)
     errors = parity(mods, captured, {"standing-q1 ingest": q1_seen,
-                                     "stage replay": replay_seen}, eager_seen, paths,
+                                     "stage replay": replay_seen,
+                                     "batched dispatch": serving_seen}, eager_seen, paths,
                     k5_shapes, device)
     cold_breakdown(workloads, sync)
-    kernels = timing(mods, captured, launches, eager_launches, errors, paths, k5_shapes)
+    kernels = timing(mods, captured, launches, {"eager_launches": eager_launches,
+                                                "serving_launches": serving_launches,
+                                                "chaos_launches": chaos_launches},
+                     errors, paths, k5_shapes)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,

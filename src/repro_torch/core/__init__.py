@@ -1,7 +1,8 @@
 # Free Join (Wang, Willsey, Suciu — SIGMOD 2023) on PyTorch: plans
 # (binary2fj + factor), the optimizer, COLT and the vectorized eager
 # engine with its baselines, the capacity planner and the static-shape
-# compiled path.
+# compiled path, with its fault injection and memory governor.
+from repro_torch.core import faults, membudget
 from repro_torch.core.api import (
     ExecOptions,
     binary_join,
@@ -12,6 +13,7 @@ from repro_torch.core.api import (
 )
 from repro_torch.core.capacity import (
     CapacityPlan,
+    CapacityQuotaError,
     ChainCapacityPlan,
     agm_bound,
     plan_capacities,
@@ -34,6 +36,7 @@ __all__ = [
     "AdaptiveExecutor",
     "BinaryPlan",
     "CapacityPlan",
+    "CapacityQuotaError",
     "CardFeedback",
     "ChainCapacityPlan",
     "Colt",
@@ -52,12 +55,14 @@ __all__ = [
     "compiled_free_join",
     "execute",
     "factor",
+    "faults",
     "free_join",
     "generic_join",
     "linear",
     "make_chain_executor",
     "make_executor",
     "materialize",
+    "membudget",
     "optimize",
     "plan_capacities",
     "plan_chain_capacities",

@@ -21,17 +21,21 @@ stage's overflow is recovered by growing exactly the offending node and
 re-running the chain. `ExecOptions(chain_stages=False)` keeps the hybrid
 (non-root stages on the eager engine, root compiled) as a baseline.
 
-A device error propagates to the caller; there is no fallback from one
-path to another.
+`compiled_free_join` has one degradation rung: an error that
+`core.faults.recoverable` names (an injected fault, a memory-governor
+shed, the CUDA allocator's out-of-memory error) is answered by the eager
+`free_join` on the same device, with a RuntimeWarning. Every other error,
+a kernel build or launch error among them, propagates to the caller.
 """
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from repro_torch.core import engine, relcache
+from repro_torch.core import engine, faults, membudget, relcache
 from repro_torch.core.engine import materialize
 from repro_torch.core.optimizer import FilteredStats, JoinOrderOptimizer, Stats, optimize
 from repro_torch.core.plan import (
@@ -89,7 +93,36 @@ class ExecOptions:
 _runner_cache = relcache.KeyedCache(max_entries=32)
 
 
-def _runner_key(stages, rels, base, agg, options, filter_vars):
+def _govern_runner(cache, key, runner) -> None:
+    """Register a freshly-cached runner with the device-memory governor,
+    costed at its frontier footprint. The governor may LRU-evict it later
+    (the callback drops the cache entry; an identical query then re-plans),
+    and the cache's own eviction paths release the governor entry through
+    KeyedCache.on_evict, so the two stores never disagree. A shed (the
+    runner alone cannot fit the budget) un-caches it: the current call
+    still runs, nothing ungoverned is kept warm."""
+    if isinstance(cache, relcache.ScopedCache):
+        root, fkey = cache._parent, (cache._tag, key)
+    else:
+        root, fkey = cache, key
+    if root.on_evict is None:
+        root.on_evict = lambda k, _v, _root=root: membudget.GOVERNOR.release(
+            ("runner", id(_root), k)
+        )
+    token = ("runner", id(root), fkey)
+    try:
+        membudget.GOVERNOR.account(
+            token,
+            runner.frontier_nbytes(),
+            evict=lambda _root=root, _k=fkey: _root._evict(_k),
+        )
+    except membudget.MemoryBudgetError:
+        root._evict(fkey)
+        return
+    runner._govern_token = token
+
+
+def _runner_key(stages, rels, base, agg, options, filter_vars, batch, max_capacity):
     return (
         # str(plan) renders the nodes but not the output projection, and
         # agg=None executors bind exactly plan.query.head — so the head is
@@ -98,6 +131,8 @@ def _runner_key(stages, rels, base, agg, options, filter_vars):
         agg,
         options,
         filter_vars,
+        batch,
+        max_capacity,
         tuple(sorted((a, id(rels[a])) for a in base)),
     )
 
@@ -256,15 +291,24 @@ def _acquire_runner(
     agg: str | None,
     options: ExecOptions,
     filter_vars: tuple[str, ...] = (),
+    batch: int | None = None,
+    max_capacity: int | None = None,
+    cache=None,
 ):
     """One planning pass -> one (possibly cached) AdaptiveExecutor.
 
-    A single optimizer.Stats cache feeds the plan choice and
-    plan_chain_capacities, the StaticSchedule per stage rides on its
+    The runner-acquisition surface behind compiled_free_join AND the join
+    serving engine. A single optimizer.Stats cache feeds the plan choice
+    and plan_chain_capacities, the StaticSchedule per stage rides on its
     CapacityPlan into every executor build, and the whole runner is keyed
     in the runner cache by plan structure + head + options + filter vars +
-    relation identities. `filter_vars` builds a constant-parameterized
-    executor, capacity-planned with FilteredStats for the selected slice.
+    batch width + growth quota + relation identities. `filter_vars` builds
+    a constant-parameterized executor (kill mode: capacity-planned with
+    FilteredStats for the selected slice); `batch` builds the mask-mode
+    multi-lane variant (planned on plain stats: its frontier layout is the
+    unfiltered one); `max_capacity` arms the per-node growth quota
+    (admission control). `cache` defaults to the verbatim runner cache;
+    the serving engine passes its template-scoped namespace.
 
     Returns (runner, rels, cacheable, plan_tree): rels is the relation dict
     the runner should execute over (the hybrid baseline materializes its
@@ -274,6 +318,7 @@ def _acquire_runner(
     from repro_torch.core.capacity import plan_chain_capacities
     from repro_torch.core.compiled import AdaptiveExecutor, _base_aliases
 
+    cache = _runner_cache if cache is None else cache
     rels = dict(relations)
     stats = Stats(rels, cached=True)  # registry-backed distinct counts
     if plan_tree is None:
@@ -303,15 +348,17 @@ def _acquire_runner(
             rels[name] = Relation(name, materialize(bound, mult, fj.query.head))
         stages = stages[-1:]
     base = sorted(_base_aliases(stages))
-    key = _runner_key(stages, rels, base, agg, options, filter_vars)
-    runner = _runner_cache.get(key) if cacheable else None
+    key = _runner_key(stages, rels, base, agg, options, filter_vars, batch, max_capacity)
+    runner = cache.get(key) if cacheable else None
     if runner is None:
         pstats = stats
-        if filter_vars:
+        if filter_vars and batch is None:
             # kill-mode filters prune the frontier as they apply, so
             # capacity-plan for the selected slice, not the whole relation;
             # this depends only on WHICH vars are filtered, never on the
-            # constants, so every query of the template shares the plan
+            # constants, so every query of the template shares the plan.
+            # Batched (mask-mode) runners keep the unfiltered frontier
+            # layout, shared across lanes, so plain stats size them right
             pstats = FilteredStats(
                 stats,
                 {a.alias: frozenset(v for v in a.vars if v in filter_vars)
@@ -335,9 +382,12 @@ def _acquire_runner(
             agg=agg,
             tighten=True,
             filter_vars=filter_vars,
+            batch=batch,
+            max_capacity=max_capacity,
         )
         if cacheable:
-            _runner_cache.put(key, runner, [rels[a] for a in base])
+            cache.put(key, runner, [rels[a] for a in base])
+            _govern_runner(cache, key, runner)
     return runner, rels, cacheable, plan_tree
 
 
@@ -371,6 +421,15 @@ def compiled_free_join(
     the same device, their outputs materialized into host relations, and
     the root compiled over them.
 
+    The degradation ladder's bottom rung: if the run raises an error that
+    faults.recoverable names (an injected fault, a MemoryBudgetError, a
+    torch.OutOfMemoryError), the query is answered by the eager free_join
+    over live-row snapshots, on the SAME device as the runner, with a
+    RuntimeWarning, and `info` gets degraded_to="eager" and degraded_from.
+    There is no CPU rung: a real out-of-memory error on the eager rung
+    propagates too. Any other error (a kernel build or launch error, a
+    ValueError, a CapacityQuotaError) propagates untouched.
+
     Returns a count for agg="count" (an int, summed in int64), else
     (bound, mult) host numpy arrays over live rows. `info`, if given,
     receives the runner, capacity plan, retry/reshape/compile counters, the
@@ -390,7 +449,21 @@ def compiled_free_join(
     # the hybrid baseline's stage relations are fresh every call: its
     # root builds its tries in the run (caching would only insert
     # dead-on-arrival entries)
-    out = runner.run_relations(rels, reuse_tries=cacheable, filter_consts=consts)
+    degraded = None
+    try:
+        out = runner.run_relations(rels, reuse_tries=cacheable, filter_consts=consts)
+    except Exception as e:
+        if not faults.recoverable(e):
+            raise
+        warnings.warn(
+            f"compiled path degraded to eager free_join after {type(e).__name__}: {e}",
+            RuntimeWarning,
+            stacklevel=2,
+        )
+        degraded = f"{type(e).__name__}: {e}"
+        tree = chosen_tree if isinstance(chosen_tree, BinaryPlan) else None
+        live = {a: relcache.live_relation(r) for a, r in relations.items()}
+        out = free_join(query, live, tree, agg=agg, filters=filters or None, device=opts.device)
     if info is not None:
         info.update(
             runner=runner,
@@ -401,6 +474,8 @@ def compiled_free_join(
             options=opts,
             plan_tree=chosen_tree,
         )
+        if degraded is not None:
+            info.update(degraded_to="eager", degraded_from=degraded)
     return out
 
 

@@ -81,6 +81,29 @@ def _round_block(x: float, block: int) -> int:
     return max(block, int(math.ceil(x / block)) * block)
 
 
+class CapacityQuotaError(RuntimeError):
+    """A query's frontier requirement exceeded its admission quota.
+
+    Raised by the adaptive runner *instead of* growing a buffer past
+    `max_capacity`: under multi-tenant serving, growing the shared batched
+    executor for one pathological query would stall every co-batched
+    tenant, so the runner surfaces the violation and lets the serving layer
+    reject exactly the offending request. `lane` identifies the batch lane
+    whose reported need drove the violation (None for unbatched runs)."""
+
+    def __init__(self, stage: int, node: int, need: int, cap: int, lane: int | None = None):
+        self.stage = stage
+        self.node = node
+        self.need = need
+        self.cap = cap
+        self.lane = lane
+        who = f" (batch lane {lane})" if lane is not None else ""
+        super().__init__(
+            f"stage {stage} node {node} needs {need} frontier lanes, "
+            f"over the {cap}-lane capacity quota{who}"
+        )
+
+
 @dataclass(frozen=True)
 class CapacityPlan:
     """Static per-node frontier sizing for one compiled plan.
@@ -103,6 +126,22 @@ class CapacityPlan:
     # the query's StaticSchedule, computed once by the planner and reused by
     # every executor build (AdaptiveExecutor, spmd_count)
     schedule: object = field(default=None, compare=False, repr=False)
+
+    def grow(self, node: int, *, compaction: bool = False) -> "CapacityPlan":
+        """Double one node's capacity. Growing a compaction target past its
+        node capacity disables that compaction instead."""
+        if compaction:
+            cur = self.compact_to[node]
+            new = None if cur is None or 2 * cur >= self.capacities[node] else 2 * cur
+            ct = tuple(new if i == node else c for i, c in enumerate(self.compact_to))
+            return replace(self, compact_to=ct)
+        caps = tuple(2 * c if i == node else c for i, c in enumerate(self.capacities))
+        # a bigger buffer lowers the live fraction; keep compaction targets
+        ct = tuple(
+            None if i == node and c is not None and c >= caps[node] else c
+            for i, c in enumerate(self.compact_to)
+        )
+        return replace(self, capacities=caps, compact_to=ct)
 
     def grow_to(self, node: int, need: int, *, compaction: bool = False) -> "CapacityPlan":
         """Jump one node's capacity straight to a reported requirement (the
@@ -153,6 +192,11 @@ class CapacityPlan:
         )
         return replace(self, capacities=caps, compact_to=ct)
 
+    def cells(self) -> int:
+        """Total planned frontier cells, the admission-control currency:
+        quotas compare this against a per-query budget before any run."""
+        return int(sum(self.capacities))
+
     def __str__(self):
         parts = []
         for i, (cap, ct) in enumerate(zip(self.capacities, self.compact_to)):
@@ -200,6 +244,11 @@ class ChainCapacityPlan:
             self,
             stages=tuple(replace(cp, schedule=s) for cp, s in zip(self.stages, schedules)),
         )
+
+    def cells(self) -> int:
+        """Total planned frontier cells across every stage (see
+        CapacityPlan.cells)."""
+        return sum(cp.cells() for cp in self.stages)
 
     def __str__(self):
         return "Chain[" + "; ".join(

@@ -68,6 +68,20 @@ The driver contract:
   StaticTrie whose every frontier expansion yields zero live lanes and
   whose probes match nothing.
 
+Serving adds a batched mode (AdaptiveExecutor(batch=B), behind
+serve/join_engine.py): the equality filters of a plan template run in
+MASK mode (make_executor(filter_kill=False)). The constants are a (B, F)
+matrix, each filter comparison ANDs into a (B, cap) lane mask gathered
+along with the frontier, and only the terminal fold reads it, so the
+expansions (K2), probes (K1) and compactions (K3) run once for all B
+queries. A chain whose filter falls in a non-root stage runs every later
+stage once per lane, on that lane's weighted stage buffer. Two more
+serving hooks live here: every cached trie and every growth of a cached
+runner is accounted with the device-memory governor (core/membudget.py),
+and AdaptiveExecutor carries the fault-injection sites of core/faults.py
+("compile" where a new executor shape is made, "overflow" and "dispatch"
+in __call__).
+
 Gathers here never rely on out-of-range clamping (PyTorch raises where JAX
 clamps): every index that can leave its range is clamped explicitly.
 """
@@ -78,7 +92,7 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
-from repro_torch.core import relcache
+from repro_torch.core import faults, membudget, relcache
 from repro_torch.core.plan import FreeJoinPlan
 from repro_torch.kernels import ops
 from repro_torch.kernels.radix_sort import lex_searchsorted
@@ -600,7 +614,9 @@ class TrieCache:
             and entry.get("version") is None
             and all(entry["cols"][v] is used[v] for v in flat)
         ):
-            return self._serve(entry["trie"], lops, budget, count_hit=True)
+            view = self._serve(entry["trie"], lops, budget, count_hit=True)
+            self._govern(rel, ns, key)
+            return view
         # miss: build, seeding the sort with any prefix-compatible cached
         # order over the same (identical) columns
         key_bits = self._key_bits(rel, flat)
@@ -628,7 +644,30 @@ class TrieCache:
         self.builds += 1
         if presorted:
             self.order_shares += 1
+        self._govern(rel, ns, key)
         return trie.table_view(lops.probed)
+
+    def _govern(self, rel, ns, key) -> None:
+        """Account the cached entry's device bytes with the memory
+        governor (an LRU touch on every serve, a resize when lazy tables or
+        delta merges changed the footprint). If the governor sheds (this
+        trie alone cannot fit the budget even after evicting every cold
+        entry), the entry is dropped and the trie serves this one call
+        uncached, keeping the governed-bytes invariant intact."""
+        entry = ns.get(key)
+        if entry is None:
+            return
+        token = ("trie", id(rel), key)
+        try:
+            membudget.GOVERNOR.account(
+                token,
+                membudget.trie_nbytes(entry["trie"]),
+                evict=lambda _ns=ns, _k=key: _ns.pop(_k, None),
+                owner=rel,
+            )
+        except membudget.MemoryBudgetError:
+            ns.pop(key, None)
+            membudget.GOVERNOR.release(token)
 
     def _serve(self, trie: StaticTrie, lops, budget, *, count_hit: bool):
         """Fill any probe tables the request needs that the cached build
@@ -674,7 +713,9 @@ class TrieCache:
         if entry is not None:
             trie = entry["trie"]
             if not deltas:
-                return self._serve(trie, lops, budget, count_hit=True)
+                view = self._serve(trie, lops, budget, count_hit=True)
+                self._govern(rel, ns, key)
+                return view
             for _ver, kind, payload in deltas:
                 if kind == "append":
                     merged = self._merge_append(trie, entry["n_real"], payload, lops, budget)
@@ -691,7 +732,9 @@ class TrieCache:
                 entry["trie"] = trie
                 entry["cols"] = dict(trie.cols)
                 entry["version"] = st.version
-                return self._serve(trie, lops, budget, count_hit=False)
+                view = self._serve(trie, lops, budget, count_hit=False)
+                self._govern(rel, ns, key)
+                return view
         # full rebuild, padded to the bucket and weighted by the liveness
         # mask, so later appends merge and later deletes retire in place
         cap = _bucket(st.total)
@@ -719,7 +762,9 @@ class TrieCache:
             "n_real": st.total,
         }
         self.builds += 1
-        return self._serve(trie, lops, budget, count_hit=False)
+        view = self._serve(trie, lops, budget, count_hit=False)
+        self._govern(rel, ns, key)
+        return view
 
     def _merge_append(self, trie, n_real, payload, lops, budget):
         """Host wrapper for one append log entry: delta key widths, bucket
@@ -793,6 +838,7 @@ def make_executor(
     agg: str | None = "count",
     schedule: StaticSchedule | None = None,
     filters: tuple = (),
+    filter_kill: bool = True,
 ):
     """Build the probe program for `plan` (see module docstring).
 
@@ -817,9 +863,21 @@ def make_executor(
 
     filters: ((var, const_index), ...) — equality selections whose
     constants are a runtime int32 tensor `filter_consts`, compared against
-    `bound[var]` the moment `var` is bound. The comparison ANDs into
-    `valid` (kill mode): filter-dead lanes stop probing immediately and
-    compaction squeezes them out.
+    `bound[var]` the moment `var` is bound. Two dispositions for the
+    comparison's outcome:
+
+    * filter_kill=True (one query): filter_consts is (F,) and the
+      comparison ANDs into `valid`; filter-dead lanes stop probing
+      immediately and compaction squeezes them out.
+    * filter_kill=False (a batch of B queries of one template):
+      filter_consts is (B, F) and the comparison ANDs into a separate
+      (B, cap) mask, `fvalid`, gathered along with the frontier and folded
+      in only at the end. `valid`, every expansion, probe and compaction
+      stay independent of the constants, so the probe pipeline runs once
+      for all B lanes. The outputs then carry a leading lane axis: counts
+      (B,) int64, or bound/valid/mult (B, cap), and the need vectors
+      (B, num_executed_nodes), a lane-independent tensor broadcast along
+      it.
     """
     plan.validate()
     filters = tuple(filters)
@@ -859,11 +917,15 @@ def make_executor(
     ):
         if filter_idx and filter_consts is None:
             raise ValueError("this executor was built with filters; pass filter_consts")
+        batched = not filter_kill and filter_consts is not None
         mults = rel_mults or {}
         tries = {
             a: as_trie(rel_data[a], level_ops[a], mults.get(a)) for a in level_ops
         }
         device = next(iter(next(iter(tries.values())).cols.values())).device
+        # mask-mode filter state: (B, cap) per-lane liveness that never
+        # feeds the frontier layout; created at the first filter comparison
+        fvalid = None
         depth = {a: 0 for a in level_ops}
         # frontier
         cap = 1
@@ -875,16 +937,19 @@ def make_executor(
         need_expand = [zero] * nsched
         need_compact = [zero] * nsched
 
-        def squeeze(bound, gid, mult, valid, cap, c_compact, i):
-            """Pack the valid lanes into a fresh c_compact-wide frontier."""
+        def squeeze(bound, gid, mult, valid, fvalid, cap, c_compact, i):
+            """Pack the valid lanes into a fresh c_compact-wide frontier
+            (on `valid` alone: the mask-mode filter mask rides along)."""
             src, live = ops.compact_indices(valid, c_compact)
             need_compact[i] = live
             srcc = src.clamp(0, cap - 1)
             bound = {v: a[srcc] for v, a in bound.items()}
             gid = {a: arr[srcc] for a, arr in gid.items()}
             mult = mult[srcc]
+            if fvalid is not None:
+                fvalid = fvalid[:, srcc]
             valid = torch.arange(c_compact, dtype=_I32, device=device) < live
-            return bound, gid, mult, valid, c_compact
+            return bound, gid, mult, valid, fvalid, c_compact
 
         for i, ((k, cover, probes), c_next, c_compact, cp_idx) in enumerate(
             zip(schedule, capacities, compact_to, compact_probe)
@@ -913,6 +978,8 @@ def make_executor(
                 bound = {v: a[frc] for v, a in bound.items()}
                 gid = {a: arr[frc] for a, arr in gid.items()}
                 mult = mult[frc]
+                if fvalid is not None:
+                    fvalid = fvalid[:, frc]
                 valid = vnew
                 cap = c_next
                 cols, new_g = t.bind_iter(d, memc, last)
@@ -921,9 +988,13 @@ def make_executor(
                         valid = valid & (bound[v] == cvals)
                     else:
                         bound[v] = cvals
-                        if v in filter_idx:  # constant selection, applied
-                            # the moment the var is bound
+                        if v in filter_idx and filter_kill:  # constant
+                            # selection the moment the var is bound: dead
+                            # lanes never reach a probe
                             valid = valid & (cvals == filter_consts[filter_idx[v]])
+                        elif v in filter_idx:  # layout-neutral lane mask
+                            hit = cvals[None, :] == filter_consts[:, filter_idx[v], None]
+                            fvalid = hit if fvalid is None else fvalid & hit
                 depth[cover.alias] = d + 1
                 if new_g is None or depth[cover.alias] == t.L:
                     # last-level iteration enumerates physical rows, so bag
@@ -955,15 +1026,19 @@ def make_executor(
                 if c_compact is not None and not compacted and j + 1 >= cp_idx and c_compact < cap:
                     # squeeze dead lanes out mid-node: the remaining probes
                     # (and all later nodes) run at c_compact
-                    bound, gid, mult, valid, cap = squeeze(
-                        bound, gid, mult, valid, cap, c_compact, i
+                    bound, gid, mult, valid, fvalid, cap = squeeze(
+                        bound, gid, mult, valid, fvalid, cap, c_compact, i
                     )
                     compacted = True
             if c_compact is not None and not compacted and c_compact < cap:
                 # probe-less node (or unreached compact point): after-node
-                bound, gid, mult, valid, cap = squeeze(bound, gid, mult, valid, cap, c_compact, i)
+                bound, gid, mult, valid, fvalid, cap = squeeze(
+                    bound, gid, mult, valid, fvalid, cap, c_compact, i
+                )
         ne = torch.stack(need_expand) if nsched else torch.zeros(0, dtype=_I32, device=device)
         nc = torch.stack(need_compact) if nsched else torch.zeros(0, dtype=_I32, device=device)
+        if batched:
+            return _fold_lanes(agg, bound, valid, mult, fvalid, ne, nc, filter_consts.shape[0])
         if agg == "count":
             return torch.where(valid, mult, 0).sum(dtype=torch.int64), ne, nc
         # lanes that went through a weighted trie's probe path can survive
@@ -972,6 +1047,31 @@ def make_executor(
         return bound, valid, mult, ne, nc
 
     return run
+
+
+def _fold_lanes(agg, bound, valid, mult, fvalid, ne, nc, lanes: int):
+    """The mask-mode terminal fold: the shared frontier and the (B, cap)
+    filter mask give each lane's result. Counts are (B,) int64; agg=None
+    gives (B, cap) bound/valid/mult. Lane-independent tensors (the needs,
+    and everything when no filter var was bound) are broadcast views."""
+
+    def lanewise(t):
+        return t.expand(lanes, *t.shape)
+
+    if agg == "count":
+        w = torch.where(valid, mult, 0).to(torch.int64)
+        if fvalid is None:
+            return lanewise(w.sum()), lanewise(ne), lanewise(nc)
+        return (w[None, :] * fvalid).sum(dim=1), lanewise(ne), lanewise(nc)
+    valid = valid & (mult > 0)
+    valid = lanewise(valid) if fvalid is None else valid[None, :] & fvalid
+    return (
+        {v: lanewise(a) for v, a in bound.items()},
+        valid,
+        lanewise(mult),
+        lanewise(ne),
+        lanewise(nc),
+    )
 
 
 def overflows(cap_plan, need_expand, need_compact):
@@ -993,6 +1093,7 @@ def make_chain_executor(
     budget: int = 32,
     agg: str | None = "count",
     filter_vars: tuple[str, ...] = (),
+    filter_kill: bool = True,
 ):
     """One device program for a whole bushy plan (Sec 2.2 stages).
 
@@ -1013,16 +1114,28 @@ def make_chain_executor(
     filter_vars names equality-selected vars: run gains a `filter_consts`
     int32 tensor in filter_vars order, and each var's comparison runs in
     the FIRST stage that binds it — filtered rows carry mult 0 into
-    downstream weighted tries, so later stages never re-check."""
+    downstream weighted tries, so later stages never re-check.
+
+    filter_kill picks the comparison's disposition (see make_executor).
+    In mask mode filter_consts is (B, F) and every output gains a leading
+    lane axis (counts (B,), bound/valid/mult (B, cap), needs (B, n)).
+    Stages run once for all lanes up to and including the first non-root
+    stage with a filter; that stage's output stamps each lane's
+    filter-dead rows with multiplicity 0, so from there on each lane has
+    its own stage buffer and every later stage runs once per lane, on a
+    weighted trie built from that lane's buffer. Templates whose filters
+    all fall in the root stage share every stage across the lanes."""
     if not len(stages) == len(cap_plans) >= 1:
         raise ValueError("one capacity plan per stage")
     filter_vars = tuple(filter_vars)
     unassigned = {v: i for i, v in enumerate(filter_vars)}
     fns = []
+    filtered = []  # per stage: does it bind a filter var?
     for i, ((_name, plan), cp) in enumerate(zip(stages, cap_plans)):
         stage_filters = tuple(
             (v, unassigned.pop(v)) for v in tuple(plan.query.variables) if v in unassigned
         )
+        filtered.append(bool(stage_filters))
         fns.append(
             make_executor(
                 plan,
@@ -1033,12 +1146,15 @@ def make_chain_executor(
                 agg=agg if i == len(stages) - 1 else None,
                 schedule=cp.schedule,
                 filters=stage_filters,
+                filter_kill=filter_kill,
             )
         )
     if unassigned:
         raise ValueError(f"filter vars not bound by any stage: {sorted(unassigned)}")
 
     def run(rel_data: dict[str, object], filter_consts: torch.Tensor | None = None):
+        if not filter_kill and filter_consts is not None and filter_vars:
+            return run_lanes(rel_data, filter_consts)
         cols = dict(rel_data)
         stage_mults: dict[str, torch.Tensor] = {}
         nes, ncs = [], []
@@ -1053,6 +1169,59 @@ def make_chain_executor(
         nes.append(out[-2])
         ncs.append(out[-1])
         return out[:-2] + (tuple(nes), tuple(ncs))
+
+    def lane_of(out, b: int):
+        """Lane b's (bound, valid, mult) of a stage's agg=None output
+        (lane-independent outputs are 1-D and serve every lane)."""
+        bound, valid, mult = out[:3]
+        if valid.dim() == 1:
+            return bound, valid, mult
+        return {v: a[b] for v, a in bound.items()}, valid[b], mult[b]
+
+    def lane_needs(needs, lanes: int):
+        if len(needs) == 1:
+            t = needs[0]
+            return t if t.dim() == 2 else t.expand(lanes, *t.shape)
+        return torch.stack([t.reshape(-1) for t in needs])
+
+    def run_lanes(rel_data, filter_consts):
+        lanes = filter_consts.shape[0]
+        envs = [(dict(rel_data), {})]  # one shared, or one per lane once split
+        nes, ncs = [], []
+        for i, ((name, plan), fn) in enumerate(zip(stages, fns)):
+            split = len(envs) > 1
+            outs = []
+            for b, (cols, stage_mults) in enumerate(envs):
+                fc = None
+                if filtered[i]:
+                    fc = filter_consts[b : b + 1] if split else filter_consts
+                outs.append(fn(cols, stage_mults, fc))
+            nes.append(lane_needs([o[-2] for o in outs], lanes))
+            ncs.append(lane_needs([o[-1] for o in outs], lanes))
+            if i == len(stages) - 1:
+                break
+            if not split and filtered[i]:  # the lanes part here
+                pairs = [(envs[0], lane_of(outs[0], b)) for b in range(lanes)]
+            else:
+                pairs = [(env, lane_of(o, 0)) for env, o in zip(envs, outs)]
+            envs = []
+            for (cols, stage_mults), (bound, valid, mult) in pairs:
+                cols, stage_mults = dict(cols), dict(stage_mults)
+                cols[name] = {v: torch.where(valid, bound[v], PAD_KEY) for v in plan.query.head}
+                stage_mults[name] = torch.where(valid, mult, 0)
+                envs.append((cols, stage_mults))
+        if len(outs) == 1:  # every filter is in the root: its outputs carry the lanes
+            root = outs[0][:-2]
+        elif agg == "count":
+            root = (torch.cat([o[0].reshape(-1) for o in outs]),)
+        else:
+            per = [lane_of(o, 0) for o in outs]
+            root = (
+                {v: torch.stack([p[0][v] for p in per]) for v in per[0][0]},
+                torch.stack([p[1] for p in per]),
+                torch.stack([p[2] for p in per]),
+            )
+        return root + (tuple(nes), tuple(ncs))
 
     return run
 
@@ -1094,9 +1263,20 @@ class AdaptiveExecutor:
     repeated calls over the same relations — and every overflow/tighten
     re-run — pay probe cost only.
 
-    filter_vars — equality selections whose constants are runtime inputs:
-    __call__ takes a `filter_consts` int32 vector in filter_vars order, and
-    one executor serves every constant.
+    Serving extensions (the multi-tenant path, see serve/join_engine.py):
+
+    * filter_vars — equality selections whose constants are runtime
+      inputs: __call__ takes a `filter_consts` int32 vector in filter_vars
+      order, and one executor serves every constant.
+    * batch=B — the chain runs in mask mode over a (B, F) constants
+      matrix, so ONE dispatch answers B queries of the template against
+      the SAME shared tries: counts come back (B,) and need vectors per
+      lane, (B, n). Overflow growth follows the per-node max over lanes
+      (the chain's shapes are shared).
+    * max_capacity — per-node growth quota: a need that would grow any
+      node past it raises capacity.CapacityQuotaError naming the
+      offending batch lane instead of growing the shared executor, so
+      admission control can reject exactly that request.
     """
 
     def __init__(
@@ -1110,6 +1290,8 @@ class AdaptiveExecutor:
         max_retries: int = 12,
         tighten: bool = False,
         filter_vars: tuple[str, ...] = (),
+        batch: int | None = None,
+        max_capacity: int | None = None,
     ):
         from repro_torch.core.capacity import ChainCapacityPlan  # deferred: no cycle
 
@@ -1146,9 +1328,21 @@ class AdaptiveExecutor:
         self.max_retries = max_retries
         self.tighten = tighten
         self.filter_vars = tuple(filter_vars)
+        self.batch = batch
+        self.max_capacity = max_capacity
+        if batch is not None and not self.filter_vars:
+            raise ValueError(
+                "batched execution varies only the constant vector per lane; "
+                "a template with no filters should run once, unbatched"
+            )
         self.retries = 0  # total overflow re-runs across calls
         self.reshapes = 0  # tightening re-runs across calls
+        self.calls = 0  # top-level calls (retries excluded)
         self._cache: dict[tuple, object] = {}
+        # memory-governor token, set by api._govern_runner when this runner
+        # is cached: growth re-accounts against the budget and sheds
+        # (MemoryBudgetError, into the serving ladder) instead of growing
+        self._govern_token = None
         self._last_needs = None  # per-stage measured expansion needs (lane counts)
         self._feedback_specs = None  # lazily-derived per-node prefix specs
         # base alias -> its level layout (for cross-call trie reuse); an
@@ -1176,52 +1370,106 @@ class AdaptiveExecutor:
             return cp
         return ChainCapacityPlan(names=tuple(n for n, _ in self.stages), stages=(cp,))
 
+    def frontier_nbytes(self, cap_plan=None) -> int:
+        """Accounting model of this runner's frontier footprint: per stage,
+        cells x 4 bytes x (bound vars + valid + mult), plus the per-lane
+        mask columns of a batched (mask-mode) runner. The governor's
+        currency for runner-cache entries and adaptive growth."""
+        chain = self._as_chain(self.cap_plan if cap_plan is None else cap_plan)
+        total = 0
+        for (_name, p), cp in zip(self.stages, chain.stages):
+            width = len(tuple(p.query.variables)) + 2
+            total += cp.cells() * 4 * width
+            if self.batch:
+                total += cp.cells() * 4 * self.batch
+        return total
+
     def _fn(self, chain):
         key = chain.key()
         if key not in self._cache:
+            # a new executor shape is made here: the injection point of
+            # "compile_fail", on the same misses as the reference's compile
+            faults.fire("compile")
             self._cache[key] = make_chain_executor(
                 self.stages,
                 chain.stages,
                 budget=self.budget,
                 agg=self.agg,
                 filter_vars=self.filter_vars,
+                # batched runs use mask-mode filters so the frontier layout
+                # is shared across lanes; single queries keep kill mode
+                filter_kill=self.batch is None,
             )
         return self._cache[key]
+
+    @staticmethod
+    def _reduced(need: np.ndarray) -> np.ndarray:
+        """Per-node need vector of a (possibly per-lane) reported need:
+        batched runs report (B, n); the chain's shapes are shared, so
+        growth follows the max over lanes."""
+        return need.max(axis=0) if need.ndim == 2 else need
+
+    def _check_quota(self, chain, s: int, i: int, need: int, per_lane: np.ndarray) -> None:
+        from repro_torch.core.capacity import CapacityQuotaError, _round_block
+
+        if self.max_capacity is None:
+            return
+        cp = chain.stages[s]
+        target = max(2 * cp.capacities[i], _round_block(int(need), cp.block))
+        if target <= self.max_capacity:
+            return
+        lane = int(np.argmax(per_lane[:, i])) if per_lane.ndim == 2 else None
+        raise CapacityQuotaError(s, i, int(need), self.max_capacity, lane=lane)
 
     def __call__(self, rel_data: dict[str, object], filter_consts=None):
         """agg="count" -> () int64 count tensor; agg=None -> (bound, valid,
         mult). rel_data values are prebuilt StaticTries and/or raw column
         dicts (see make_executor). filter_consts: (F,) int32 in filter_vars
-        order."""
+        order, or (batch, F) for a batched runner, which returns (B,)
+        counts or (B, cap) bound/valid/mult."""
         from repro_torch.core.capacity import _round_block  # deferred: no cycle
 
         if self.filter_vars:
             if filter_consts is None:
                 raise ValueError("this runner's template has filters")
             filter_consts = torch.as_tensor(filter_consts, dtype=_I32).to(self.device)
-            if filter_consts.shape != (len(self.filter_vars),):
-                raise ValueError(f"filter_consts must be ({len(self.filter_vars)},)")
+            want = (self.batch, len(self.filter_vars)) if self.batch else (len(self.filter_vars),)
+            if tuple(filter_consts.shape) != want:
+                raise ValueError(f"filter_consts must be {want}")
         chain = self._as_chain(self.cap_plan)
+        self.calls += 1
         tightened = False
+        faults.fire("overflow", batch=self.batch, max_capacity=self.max_capacity)
+        rows = self.batch or 1
         for _ in range(self.max_retries + 1):
             fn = self._fn(chain)
+            faults.fire("dispatch")
             out = fn(rel_data, filter_consts) if self.filter_vars else fn(rel_data)
             # ONE device-to-host copy for the control plane: the per-stage
-            # need vectors drive host-side overflow/tighten decisions.
-            # Results stay on the device until the caller reads them.
-            sizes = [len(ne) for ne in out[-2]]
-            host = torch.cat(list(out[-2]) + list(out[-1])).cpu().numpy()
-            cuts = np.cumsum(sizes + sizes)[:-1]
-            parts = np.split(host, cuts)
+            # need vectors (per lane when batched) drive host-side
+            # overflow/tighten decisions. Results stay on the device until
+            # the caller reads them.
+            sizes = [ne.shape[-1] for ne in out[-2]]
+            host = torch.cat([t.reshape(rows, -1) for t in out[-2] + out[-1]], dim=1)
+            parts = np.split(host.cpu().numpy(), np.cumsum(sizes + sizes)[:-1], axis=1)
+            if not self.batch:
+                parts = [p[0] for p in parts]
             needs_e, needs_c = parts[: len(sizes)], parts[len(sizes):]
             grown = chain
-            for s, (cp, ne, nc) in enumerate(zip(chain.stages, needs_e, needs_c)):
+            for s, (cp, ne_l, nc_l) in enumerate(zip(chain.stages, needs_e, needs_c)):
+                ne, nc = self._reduced(ne_l), self._reduced(nc_l)
                 oe, oc = overflows(cp, ne, nc)
                 for i in np.flatnonzero(oc):
                     grown = grown.grow_to(s, int(i), int(nc[i]), compaction=True)
                 for i in np.flatnonzero(oe):
+                    self._check_quota(chain, s, int(i), int(ne[i]), ne_l)
                     grown = grown.grow_to(s, int(i), int(ne[i]))
             if grown is not chain:
+                if self._govern_token is not None:
+                    # growth must fit the device-memory budget: a shed here
+                    # raises MemoryBudgetError into the degradation ladder
+                    # instead of growing past what the budget allows
+                    membudget.GOVERNOR.account(self._govern_token, self.frontier_nbytes(grown))
                 chain = grown
                 self.retries += 1
                 continue
@@ -1232,6 +1480,7 @@ class AdaptiveExecutor:
                 # for planning estimates
                 shrunk = chain
                 for s, (ne, nc) in enumerate(zip(needs_e, needs_c)):
+                    ne, nc = self._reduced(ne), self._reduced(nc)
                     for i in range(len(ne)):
                         cp = shrunk.stages[s]
                         if cp.capacities[i] > 2 * _round_block(int(ne[i]), cp.block):
@@ -1246,9 +1495,11 @@ class AdaptiveExecutor:
                     continue
             # steady state: keep the grown/tightened plan
             self.cap_plan = chain.stages[0] if self._single else chain
+            if self._govern_token is not None:
+                membudget.GOVERNOR.account(self._govern_token, self.frontier_nbytes(chain))
             # stash the measured per-node expansion needs: exact frontier
             # lane counts, the optimizer's measured-cardinality feedback
-            self._last_needs = tuple(needs_e)
+            self._last_needs = tuple(self._reduced(ne) for ne in needs_e)
             result = out[:-2]
             return result[0] if self.agg == "count" else result
         raise RuntimeError(
@@ -1340,8 +1591,13 @@ class AdaptiveExecutor:
         the run every call (the cold baseline). Returns an int count for
         agg="count", else (cols, mult) host numpy arrays over live rows.
 
-        Successful unfiltered runs feed the optimizer's measured-
-        cardinality loop (see _record_feedback)."""
+        A batched runner returns the per-lane results: a (B,) int64 count
+        array for agg="count", else a list of B (cols, mult) pairs.
+
+        Successful runs feed the optimizer's measured-cardinality loop
+        (see _record_feedback), except kill-mode filtered runs, whose lane
+        counts depend on the constants (mask-mode batched runs keep the
+        unfiltered layout)."""
         data = {}
         for a in sorted(_base_aliases(self.stages)):
             rel = relations[a]
@@ -1354,10 +1610,19 @@ class AdaptiveExecutor:
                     continue
             data[a] = device_columns(relcache.live_relation(rel), self.device)
         out = self(data, filter_consts)
-        if not self.filter_vars:
+        if not self.filter_vars or self.batch is not None:
             self._record_feedback(relations)
         if self.agg == "count":
+            if self.batch:  # the dispatch's one result read-back
+                return out.cpu().numpy().astype(np.int64)
             return int(out.item())
+        if self.batch:
+            bound, valid, mult = out
+            host = ({v: a.cpu() for v, a in bound.items()}, valid.cpu(), mult.cpu())
+            return [
+                materialize_compiled({v: a[b] for v, a in host[0].items()}, host[1][b], host[2][b])
+                for b in range(self.batch)
+            ]
         return materialize_compiled(*out)
 
 

@@ -1,5 +1,13 @@
 """Serving on the port.
 
+* **JoinServeEngine** (join_engine.py) serves *join queries*: concurrent
+  tenants' queries are canonicalized into plan templates
+  (templates.canonicalize: alias alpha-renaming + constant lifting),
+  co-template requests are dispatched as one mask-mode batched probe over
+  shared cached tries, and admission control (admission.py) rejects
+  quota-violating queries instead of letting them trigger growth storms.
+  Recoverable faults walk a degradation ladder down to the eager engine
+  on the same device.
 * **StandingQueryEngine** (standing.py) keeps registered join queries
   *answered* as base relations mutate through the relcache delta API
   (`append`/`delete`): each refresh recomputes only the plan stages whose
@@ -7,9 +15,21 @@
   cache), replaying cached device buffers for the rest.
 * **canonicalize** / **PlanTemplate** (templates.py) map alpha-equivalent
   spellings of one query, with their selection constants lifted out, to
-  one template key, so they share per-stage runners.
+  one template key, so they share runners.
 """
+from repro_torch.serve.admission import AdmissionController, AdmissionError, QueryQuota
+from repro_torch.serve.join_engine import JoinRequest, JoinServeEngine
 from repro_torch.serve.standing import StandingQuery, StandingQueryEngine
 from repro_torch.serve.templates import PlanTemplate, canonicalize
 
-__all__ = ["PlanTemplate", "StandingQuery", "StandingQueryEngine", "canonicalize"]
+__all__ = [
+    "AdmissionController",
+    "AdmissionError",
+    "JoinRequest",
+    "JoinServeEngine",
+    "PlanTemplate",
+    "QueryQuota",
+    "StandingQuery",
+    "StandingQueryEngine",
+    "canonicalize",
+]

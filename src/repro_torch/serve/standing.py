@@ -1,6 +1,6 @@
 """Standing queries over streaming ingest: incremental view maintenance.
 
-compiled_free_join answers a query once; this engine keeps queries ANSWERED —
+JoinServeEngine answers a query once; this engine keeps queries ANSWERED —
 each registered query's result is maintained as the base relations mutate
 through the relcache delta API (append/delete): a continuous workload
 served by one engine for both plan shapes (Kaboli et al., arXiv
@@ -19,17 +19,20 @@ served by one engine for both plan shapes (Kaboli et al., arXiv
   are replayed verbatim; only the stages downstream of an actually-changed
   input recompute.
 * PLAN TEMPLATES (serve.templates.canonicalize): standing queries are
-  registered through one canonicalization, so two tenants' spellings of
-  one query share a single set of per-stage runners, with the lifted
-  constants as the only per-query state.
+  registered through the same canonicalization as JoinServeEngine
+  requests, so two tenants' spellings of one query share a single set of
+  per-stage runners, with the lifted constants as the only per-query
+  state.
 
 The observable contract (tests lock the counters): ingest into a relation
 only the root stage reads recomputes exactly that stage; a refresh with no
 mutations at all recomputes nothing.
 
-A fault in a refresh (a device error, an overflow that outlasts the retry
-budget) propagates to the caller: the port has no eager host engine to
-answer from yet, so `degraded_refreshes` stays 0 and `degraded_to` None.
+A refresh whose compiled run raises an error that core.faults.recoverable
+names, or a CapacityQuotaError, is answered by the eager free_join on the
+same device (`degraded_to = "eager"`, `degraded_refreshes` counts it), and
+every stage state is cleared so the next refresh rebuilds the compiled
+pipeline. Any other error (a kernel build or launch error) propagates.
 """
 from __future__ import annotations
 
@@ -38,9 +41,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core import relcache
-from repro_torch.core.api import ExecOptions
-from repro_torch.core.capacity import plan_chain_capacities
+from repro_torch.core import faults, relcache
+from repro_torch.core.api import ExecOptions, free_join
+from repro_torch.core.capacity import CapacityQuotaError, plan_chain_capacities
 from repro_torch.core.compiled import (
     PAD_KEY,
     TRIE_CACHE,
@@ -50,7 +53,7 @@ from repro_torch.core.compiled import (
     materialize_compiled,
 )
 from repro_torch.core.optimizer import JoinOrderOptimizer, Stats
-from repro_torch.core.plan import stage_plans
+from repro_torch.core.plan import BinaryPlan, stage_plans
 from repro_torch.relational.relation import Relation
 from repro_torch.relational.schema import Query
 from repro_torch.serve.templates import PlanTemplate, canonicalize
@@ -103,8 +106,9 @@ class StandingQuery:
     stage_consts: list[np.ndarray | None]
     result: object = None
     result_version: int = 0
-    # kept for the handle's shape; always None in the port (no eager
-    # fallback: a refresh fault propagates)
+    # "eager" while the last refresh was answered by the eager engine after
+    # a recoverable fault; cleared by the next successful compiled root
+    # recompute
     degraded_to: str | None = None
 
     @property
@@ -117,12 +121,11 @@ class StandingQuery:
 class StandingQueryEngine:
     """register() standing queries, refresh() their results incrementally.
 
-    `options` are the ExecOptions every template is canonicalized and run
-    under (default: on the card). `engine=` (sharing a JoinServeEngine's
-    options) raises NotImplementedError: the port has no JoinServeEngine
-    yet. Per-stage runners are cached per template key: every standing
-    query of one template shares them, constants being the only per-query
-    input.
+    Pass `engine=` a JoinServeEngine to share its ExecOptions (so templates
+    canonicalized here carry the same key a submit() of the same query
+    would); otherwise supply `options` directly (default: on the card).
+    Per-stage runners are cached per template key: every standing query of
+    one template shares them, constants being the only per-query input.
 
     `ingest(rel, delta_cols)` is the streaming front door: one
     relcache.append (delta trie merge downstream) followed by a refresh of
@@ -136,12 +139,7 @@ class StandingQueryEngine:
         engine=None,
         options: ExecOptions | None = None,
     ):
-        if engine is not None:
-            raise NotImplementedError(
-                "engine= needs JoinServeEngine, which the port does not have yet; "
-                "pass options="
-            )
-        self.options = options or ExecOptions()
+        self.options = engine.options if engine is not None else (options or ExecOptions())
         self.queries: list[StandingQuery] = []
         self._next_qid = 0
         # template key -> tuple of (name, plan, AdaptiveExecutor, stage filter
@@ -150,8 +148,9 @@ class StandingQueryEngine:
         self.stage_runs = 0
         self.stages_skipped = 0
         self.stages_recomputed = 0
-        # refreshes answered by an eager host fallback: always 0 in the port,
-        # which has none (a refresh fault propagates)
+        # refreshes answered by the eager engine after a recoverable fault:
+        # the result stays correct, the counter says the compiled path
+        # needs attention
         self.degraded_refreshes = 0
 
     # ---- intake -------------------------------------------------------
@@ -268,14 +267,24 @@ class StandingQueryEngine:
                 self.stages_skipped += 1
                 continue
             self.stages_recomputed += 1
-            data = self._stage_data(plan, stage_names, rels, runner, states_by_name)
-            out = runner(data, sq.stage_consts[i])
+            try:
+                data = self._stage_data(plan, stage_names, rels, runner, states_by_name)
+                out = runner(data, sq.stage_consts[i])
+            except Exception as e:
+                # a standing query has no co-batched tenants to protect, so
+                # a runtime capacity quota degrades like a device fault:
+                # answer from the eager engine, keep the result live
+                if not (faults.recoverable(e) or isinstance(e, CapacityQuotaError)):
+                    raise
+                self._recover_eager(sq)
+                return True
             if is_root:
                 if sq.template.agg == "count":
                     sq.result = int(out.item())  # the refresh's one read-back
                 else:
                     sq.result = materialize_compiled(*out)
                 sq.result_version += 1
+                sq.degraded_to = None
                 root_changed = True
             else:
                 state.out = out
@@ -283,6 +292,27 @@ class StandingQueryEngine:
             state.fingerprint = fp
             state.runs += 1
         return root_changed
+
+    def _recover_eager(self, sq: StandingQuery) -> None:
+        """Fault recovery: answer the query on the eager engine over
+        live-row snapshots, on the template's device, and invalidate every
+        cached stage state, so the next refresh rebuilds the compiled
+        pipeline from scratch (clearing `degraded_to` if it succeeds)."""
+        t = sq.template
+        filters = {v: int(c) for v, c in zip(t.filter_vars, sq.consts)}
+        tree = t.plan_tree if isinstance(t.plan_tree, BinaryPlan) else None
+        rels = {a: relcache.live_relation(r) for a, r in t.relations.items()}
+        out = free_join(
+            t.query, rels, tree, agg=t.agg, filters=filters or None, device=t.options.device
+        )
+        sq.result = int(out) if t.agg == "count" else out
+        sq.result_version += 1
+        sq.degraded_to = "eager"
+        self.degraded_refreshes += 1
+        for state in sq.states:
+            state.fingerprint = None
+            state.out = None
+            state.tries = {}
 
     def _stage_fp(self, plan, stage_names, rels, states_by_name):
         """One stage's input fingerprint: upstream stages by run counter,

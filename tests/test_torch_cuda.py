@@ -276,3 +276,68 @@ def test_hybrid_baseline_on_card_matches_cpu(cuda, rng):
     assert got == compiled_free_join(q, rels, tree, options=ExecOptions(device="cpu",
                                                                         chain_stages=False))
     assert got == compiled_free_join(q, rels, tree, options=ExecOptions(device="cuda"))
+
+
+def _batched_pair(device, rels, q, batch):
+    """An unfiltered runner and a batched mask-mode runner over the triangle
+    on `device`, the batch filtering on the plan's first bound variable (so
+    both runners have the same schedule), each warmed by one call."""
+    from repro_torch.core import api
+
+    opts = ExecOptions(device=device)
+    plain, *_ = api._acquire_runner(q, rels, None, agg="count", options=opts)
+    plain.run_relations(rels)
+    var = plain.schedule.entries[0][1].vars[0]
+    batched, *_ = api._acquire_runner(q, rels, None, agg="count", options=opts,
+                                      filter_vars=(var,), batch=batch)
+    consts = np.arange(batch, dtype=np.int32)[:, None] * 7
+    batched.run_relations(rels, filter_consts=consts)
+    return plain, batched, var, consts
+
+
+def test_batched_dispatch_on_card_equals_kill_mode_calls(cuda, rng):
+    """One mask-mode dispatch of 8 lanes on the card equals 8 kill-mode
+    calls on the card and the same dispatch on the CPU; a JoinServeEngine
+    drain on the card equals one on the CPU, agg=None included."""
+    from repro_torch.serve import JoinServeEngine
+
+    q = triangle_query()
+    rels = {a.alias: Relation(a.alias, {v: rng.integers(0, 60, 5000) for v in a.vars})
+            for a in q.atoms}
+    _plain, batched, var, consts = _batched_pair("cuda", rels, q, 8)
+    got = batched.run_relations(rels, filter_consts=consts)
+    want = [compiled_free_join(q, rels, filters={var: int(c)}, options=ExecOptions(device="cuda"))
+            for c in consts[:, 0]]
+    assert got.tolist() == want
+    _p, cpu_batched, _v, _c = _batched_pair("cpu", rels, q, 8)
+    assert cpu_batched.run_relations(rels, filter_consts=consts).tolist() == want
+    results = {}
+    for device in ("cuda", "cpu"):
+        eng = JoinServeEngine(slots=4, options=ExecOptions(device=device))
+        reqs = [eng.submit(q, rels, {"x": c}, agg=agg) for agg in ("count", None)
+                for c in (1, 5, 9, 5, 30)]
+        eng.run()
+        assert all(r.error is None and r.degraded_to is None for r in reqs)
+        results[device] = [r.result if isinstance(r.result, int) else
+                           (sorted(zip(*(r.result[0][v].tolist() for v in q.head))),
+                            sorted(r.result[1].tolist())) for r in reqs]
+    assert results["cuda"] == results["cpu"]
+
+
+def test_mask_path_launches_like_one_unfiltered_call(cuda, rng):
+    """The batched dispatch runs the probe pipeline once for all lanes: as
+    many K1, K2 and K3 launches as one warm unfiltered call, and no K4."""
+    q = triangle_query()
+    rels = {a.alias: Relation(a.alias, {v: rng.integers(0, 60, 5000) for v in a.vars})
+            for a in q.atoms}
+    plain, batched, _var, consts = _batched_pair("cuda", rels, q, 16)
+    mods = (hash_probe, csr_expand, compact, radix_sort)
+
+    def launches(fn):
+        before = [m.launches for m in mods]
+        fn()
+        return [m.launches - b for m, b in zip(mods, before)]
+
+    one = launches(lambda: plain.run_relations(rels))
+    many = launches(lambda: batched.run_relations(rels, filter_consts=consts))
+    assert many == one and one[1] > 0 and one[3] == 0, (one, many)
