@@ -86,6 +86,26 @@ Phases (any failure raises, and the script exits non-zero):
      launches, the compiled path's warm ms beside them (timed outside the
      count); for one eager q1 call the device idle share (torch.profiler)
      and its host synchronizations. The `eager path:` line holds them.
+  4a. Analysis path (counters set to 0 before, read after; K1-K4 must
+     launch): repro_torch.analysis on the card. compiled_free_join with
+     ExecOptions(verify=True) on LSQB q1 at SF 10 and on the star, over
+     new relation objects, cold then warm, each count equal to its numpy
+     oracle; the planning pass's seconds (plan_s) beside the verifier's
+     own milliseconds (lint_chain timed alone on the same chain). q1
+     planned with no plan tree under JoinOrderOptimizer(debug_lint=True):
+     every finalist lints clean (finalists, lint ms). The launch audit
+     (trace_runner + audit_runner) of four warm runners: q1 count, q1
+     agg=None, the star count and the serving phase's batched q1 template
+     at 16 lanes (acquired as JoinServeEngine acquires it), each call also
+     counted by sync_count; no ERROR, and the audit's host syncs equal
+     sync_count's; per runner syncs, K1-K4 launches, tensor ops per
+     schedule op and the upload inventory. A JoinServeEngine(slots = 16)
+     rejects a query with an unbound head variable and one with an
+     unknown filter variable, then serves a valid request (the top hub's
+     triangle count) equal to the numpy oracle. count_query on q1 with
+     the planner's capacities: equal to the oracle, no overflow. The
+     corpus gate, python -m repro_torch.analysis --device cuda, in
+     process: exit 0. The `analysis:` line holds it all.
   5. K5's path (counter set to 0 before, read after): ops.intersect_sorted
      of the 1,800,200 knows destinations into the sorted distinct knows
      sources, held against numpy.
@@ -118,7 +138,8 @@ Phases (any failure raises, and the script exits non-zero):
      times per call beside them. K5's record holds its two other shapes
      under "shapes"; every record its launches on its path ("launches"),
      on the eager path ("eager_launches"), the serving path
-     ("serving_launches") and the chaos path ("chaos_launches").
+     ("serving_launches"), the chaos path ("chaos_launches") and the
+     analysis path ("analysis_launches").
 
 The last line is {"ok": true, "device": {...}}; the line before it the
 `kernels` JSON record, and before that the card's name and power limit.
@@ -961,6 +982,180 @@ def chaos_path(device: str, seed: int, sync, slots: int = 8, sf: float = 1):
 
 
 # ---------------------------------------------------------------------------
+# the analysis path: plan verification and the launch/sync audit
+# ---------------------------------------------------------------------------
+
+
+def fresh_copy(rels):
+    """The same columns under new relation objects: every cache misses."""
+    from repro_torch.relational.relation import Relation
+
+    return {a: Relation(r.name, dict(r.columns)) for a, r in rels.items()}
+
+
+def analysis_path(device: str, seed: int, workloads, ref, sync):
+    """The analysis phase (see the module docstring): verify=True cold and
+    warm, debug_lint, the launch audit of four warm runners against
+    sync_count, the submit-time lint, count_query, and the corpus gate.
+    Returns the record printed on the `analysis:` line."""
+    from repro_torch.analysis import PlanVerificationError
+    from repro_torch.analysis import __main__ as analysis_cli
+    from repro_torch.analysis.launch_audit import (
+        audit_runner,
+        runner_limits,
+        schedule_ops,
+        trace_runner,
+    )
+    from repro_torch.analysis.planlint import lint_chain
+    from repro_torch.core import (
+        TRIE_CACHE,
+        ExecOptions,
+        JoinOrderOptimizer,
+        Stats,
+        compiled_free_join,
+        plan_chain_capacities,
+        relcache,
+    )
+    from repro_torch.core.api import _acquire_runner, _runner_cache
+    from repro_torch.core.compiled import count_query
+    from repro_torch.core.plan import stage_plans
+    from repro_torch.relational.schema import Query
+    from repro_torch.serve import JoinServeEngine
+    from repro_torch.serve.templates import canonicalize
+
+    q1, q1_rels, star, star_rels, opts = workloads
+    verify = ExecOptions(device=device, verify=True)
+    rec = {"verify": {}, "audit": {}}
+
+    # ExecOptions(verify=True), cold (new relation objects) then warm
+    for name, q, rels, want in (("q1", q1, q1_rels, ref["q1_count"]),
+                                ("star", star, star_rels, ref["star_count"])):
+        fresh = fresh_copy(rels)
+        t0 = time.perf_counter()
+        runner, _rels, _cacheable, _tree = _acquire_runner(q, fresh, None, agg="count",
+                                                           options=verify)
+        t1 = time.perf_counter()
+        # the verifier's share of that planning pass: the same lint, timed
+        # alone on the same freshly planned chain
+        lint_chain(runner.stages, runner._as_chain(runner.cap_plan)).raise_errors()
+        t2 = time.perf_counter()
+        r = {"plan_s": t1 - t0, "verify_ms": (t2 - t1) * 1e3}
+        for phase in ("cold", "warm"):
+            builds, info = TRIE_CACHE.builds, {}
+            t = time.perf_counter()
+            out = compiled_free_join(q, fresh, agg="count", options=verify, info=info)
+            sync()
+            r[f"{phase}_s"] = time.perf_counter() - t
+            r[f"{phase}_builds"] = TRIE_CACHE.builds - builds
+            if out != want:
+                fail(f"analysis: {name} under verify=True {phase}: {out} != oracle {want}")
+        if info["runner"] is not runner or r["warm_builds"]:
+            fail(f"analysis: {name} under verify=True re-planned or rebuilt when warm")
+        r["count"] = out
+        rec["verify"][name] = r
+
+    # JoinOrderOptimizer(debug_lint=True) on q1 with no plan tree
+    fresh = fresh_copy(q1_rels)
+    opt = JoinOrderOptimizer(level=opts.optimize_level, safety=opts.safety,
+                             compact_threshold=opts.compact_threshold,
+                             feedback=relcache.FEEDBACK, debug_lint=True)
+    t = time.perf_counter()
+    tree = opt.choose(q1, fresh, stats=Stats(fresh, cached=True))
+    choose_ms = (time.perf_counter() - t) * 1e3
+    if opt.linted < 1:
+        fail("analysis: debug_lint linted no finalist")
+    rec["debug_lint"] = {"finalists": opt.linted, "lint_ms": opt.lint_s * 1e3,
+                         "choose_ms": choose_ms, "tree": str(tree)}
+    del fresh
+
+    # the launch audit of four warm runners, each call also counted by
+    # torch.cuda.set_sync_debug_mode
+    t_q1 = canonicalize(q1, q1_rels, {"a": 0}, options=opts)[0]
+    runners = {
+        "q1 count": _acquire_runner(q1, q1_rels, None, agg="count", options=opts)[0],
+        "q1 agg=None": _acquire_runner(q1, q1_rels, None, agg=None, options=opts)[0],
+        "star count": _acquire_runner(star, star_rels, None, agg="count", options=opts)[0],
+        # the serving phase's batched q1 template, acquired as JoinServeEngine does
+        "q1 batched x16": _acquire_runner(
+            t_q1.query, t_q1.relations, t_q1.plan_tree, agg="count", options=opts,
+            filter_vars=t_q1.filter_vars, batch=16,
+            cache=_runner_cache.scoped("join-templates"))[0],
+    }
+    for name, runner in runners.items():
+        rels = t_q1.relations if runner.batch else (star_rels if "star" in name else q1_rels)
+        consts = np.zeros((16, 1), np.int32) if runner.batch else None
+        runner.run_relations(rels, filter_consts=consts)  # warm: capacities settle
+        box = []
+        syncs = sync_count(lambda r=runner, rl=rels, c=consts: box.append(
+            trace_runner(r, rl, filter_consts=c)))
+        trace = box[0]
+        rep = audit_runner(runner, rels, name=name, trace=trace)
+        n_ops = sum(trace.ops.values()) + sum(trace.kernel_calls.values())
+        rec["audit"][name] = {
+            "syncs": trace.syncs, "sync_count": syncs, "read_backs": runner.warm_read_backs,
+            "sync_sites": trace.sync_sites,
+            "launches": {k: trace.launches[k] for k in JOIN_KERNELS},
+            "ops": n_ops, "ops_limit": runner_limits(runner)["ops"],
+            "ops_per_schedule_op": n_ops / schedule_ops(runner),
+            "uploads": trace.uploads, "findings": [str(d) for d in rep]}
+        if not rep.ok:
+            fail(f"analysis: the audit of {name} found errors:\n{rep}")
+        if trace.syncs != syncs:
+            fail(f"analysis: {name}: the audit counted {trace.syncs} host syncs, "
+                 f"set_sync_debug_mode {syncs}")
+
+    # the submit-time lint: two invalid requests rejected, a valid one served
+    _fof, triangle_at, persons = point_oracles(q1_rels["K1"])
+    c = int(persons[0])
+    eng = JoinServeEngine(slots=16, options=opts)
+    bad = eng.submit(Query(q1.atoms, head=(*q1.head, "__alien")), q1_rels, {"a": c},
+                     tenant="t0")
+    unknown = eng.submit(q1, q1_rels, {"__nope": 1}, tenant="t1")
+    queued = len(eng.queue)
+    ok = eng.submit(q1, q1_rels, {"a": c}, tenant="t0")
+    eng.run()
+    if not (bad.done and isinstance(bad.error, PlanVerificationError)
+            and "unbound-head-var" in bad.error.report.rules()):
+        fail(f"analysis: the unbound head var was not rejected ({bad.error!r})")
+    if not (unknown.done and isinstance(unknown.error, ValueError)) or queued:
+        fail(f"analysis: the unknown filter var was not rejected ({unknown.error!r})")
+    if ok.error is not None or ok.result != triangle_at(c):
+        fail(f"analysis: the valid request after two rejections: {ok.result!r} "
+             f"({ok.error!r}) != oracle {triangle_at(c)}")
+    rec["submit"] = {"rejected": eng.admission.rejected,
+                     "reasons": eng.admission.rejected_reasons,
+                     "errors": [type(bad.error).__name__, type(unknown.error).__name__],
+                     "served": {"a": c, "count": ok.result}}
+
+    # count_query on q1 with the planner's capacities
+    stats = Stats(q1_rels, cached=True)
+    tree = JoinOrderOptimizer(level=opts.optimize_level, safety=opts.safety,
+                              compact_threshold=opts.compact_threshold,
+                              feedback=relcache.FEEDBACK).choose(q1, q1_rels, stats=stats)
+    stages = stage_plans(q1, tree)
+    cp = plan_chain_capacities(stages, stats=stats, safety=opts.safety,
+                               compact_threshold=opts.compact_threshold,
+                               feedback=relcache.FEEDBACK).stages[-1]
+    if len(stages) != 1:
+        fail(f"analysis: q1 planned as {len(stages)} stages, count_query takes one plan")
+    t = time.perf_counter()
+    count, overflow = count_query(stages[0][1], q1_rels, cp.capacities, device=device)
+    rec["count_query"] = {"count": count, "overflow": overflow, "capacities": cp.capacities,
+                          "s": time.perf_counter() - t}
+    if overflow or count != ref["q1_count"]:
+        fail(f"analysis: count_query {count} (overflow {overflow}) != oracle {ref['q1_count']}")
+
+    # the corpus gate on the card, in process
+    t = time.perf_counter()
+    rc = analysis_cli.main(["--device", device])
+    rec["corpus_gate"] = {"exit": rc, "s": time.perf_counter() - t}
+    if rc != 0:
+        fail(f"analysis: python -m repro_torch.analysis --device {device} exited {rc}")
+    print("analysis: " + json.dumps(rec), flush=True)
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # the eager path: free_join, binary_join, generic_join, the hybrid baseline
 # ---------------------------------------------------------------------------
 
@@ -1701,6 +1896,8 @@ def main(argv=None) -> int:
     eager_ref = eager_oracles(args.seed, workloads, sync)
     eager_seen, eager_launches = drive("eager path", JOIN_KERNELS, eager_path, device,
                                        args.seed, workloads, eager_ref, sync)
+    _, analysis_launches = drive("analysis path", JOIN_KERNELS, analysis_path, device,
+                                 args.seed, workloads, eager_ref, sync)
     k5_args, k5_counts = drive("intersect path", ("intersect",), intersect_path,
                                workloads[1]["K1"], device)
     launches["intersect"], paths["intersect"] = k5_counts["intersect"], "intersect path"
@@ -1715,7 +1912,8 @@ def main(argv=None) -> int:
     cold_breakdown(workloads, sync)
     kernels = timing(mods, captured, launches, {"eager_launches": eager_launches,
                                                 "serving_launches": serving_launches,
-                                                "chaos_launches": chaos_launches},
+                                                "chaos_launches": chaos_launches,
+                                                "analysis_launches": analysis_launches},
                      errors, paths, k5_shapes)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -81,6 +81,24 @@ def _round_block(x: float, block: int) -> int:
     return max(block, int(math.ceil(x / block)) * block)
 
 
+def node_agm_bounds(schedule, sizes: dict[str, float]) -> list[float]:
+    """AGM bound of each executed node's prefix sub-query, in schedule
+    order: the bound is taken right after the node's cover level is
+    consumed (exactly where plan_capacities caps the expansion buffer),
+    then the node's probes extend the prefix for the next node. Shared by
+    the capacity planner's sizing walk and the static verifier
+    (repro_torch.analysis.planlint), so "capacity exceeds the AGM cap"
+    means the same thing in both places."""
+    prefix: dict[str, tuple[str, ...]] = {a: () for a in sizes}
+    out: list[float] = []
+    for _k, cover, probes in schedule:
+        prefix[cover.alias] = prefix[cover.alias] + tuple(cover.vars)
+        out.append(agm_bound(prefix, sizes))
+        for sa in probes:
+            prefix[sa.alias] = prefix[sa.alias] + tuple(sa.vars)
+    return out
+
+
 class CapacityQuotaError(RuntimeError):
     """A query's frontier requirement exceeded its admission quota.
 
@@ -300,14 +318,13 @@ def plan_capacities(
         a: float(max(1, stats.size(a)))
         for a in {sa.alias for node in plan.nodes for sa in node}
     }
+    agms = node_agm_bounds(schedule.entries, sizes)
     prefix: dict[str, tuple[str, ...]] = {a: () for a in sizes}
     caps: list[int] = []
     compact: list[int | None] = []
     compact_probe: list[int] = []
-    agms: list[float] = []
-    for (_k, cover, probes), est in zip(schedule.entries, estimates):
+    for (_k, cover, probes), est, bound in zip(schedule.entries, estimates, agms):
         prefix[cover.alias] = prefix[cover.alias] + tuple(cover.vars)
-        bound = agm_bound(prefix, sizes)
         cap = _round_block(min(max(1.0, est.expand) * safety, bound, float(max_capacity)), block)
         last = est is estimates[-1] and not compact_output
         # earliest probe after which the predicted live fraction collapses:
@@ -337,7 +354,6 @@ def plan_capacities(
         caps.append(cap)
         compact.append(target)
         compact_probe.append(cp_idx)
-        agms.append(bound)
     return CapacityPlan(
         capacities=tuple(caps),
         compact_to=tuple(compact),

@@ -94,6 +94,7 @@ import torch
 
 from repro_torch.core import faults, membudget, relcache
 from repro_torch.core.plan import FreeJoinPlan
+from repro_torch.core.transfers import TRANSFERS
 from repro_torch.kernels import ops
 from repro_torch.kernels.radix_sort import lex_searchsorted
 
@@ -250,13 +251,14 @@ class StaticTrie:
         self.child_base, self.child_counts, self.row_count, self.tables = [], [], [], []
         self.row_weight = []
         ones = torch.ones(n, dtype=_I32, device=device)
+        # row 0 starts a group at every depth; made on the device, since a
+        # Python scalar written into a device tensor is a blocking upload
+        first = idx == 0
         for d, lv in enumerate(lops.levels):
-            diff = torch.zeros(n, dtype=torch.bool, device=device)
-            diff[0] = True
+            diff = first.clone()
             for v in lv:
                 diff[1:] |= sc[v][1:] != sc[v][:-1]
             flag = flag | diff
-            flag[0] = True
             flag32 = flag.to(_I32)
             gd1 = torch.cumsum(flag32, dim=0, dtype=_I32) - 1  # g[d+1]
             # children of each depth-d group (counts over depth-(d+1) firsts)
@@ -447,7 +449,7 @@ def _merge_append(
         new_cols[v] = col
     om = old_mult if old_mult is not None else torch.ones(c_old, dtype=_I32, device=device)
     new_mult = extend(torch.where(idx[:c_old] < n_real, om, 0), 0)
-    new_mult[n_real:n_new] = 1
+    new_mult = torch.where((idx >= n_real) & (idx < n_new), 1, new_mult)
     if len(lops.levels) == 1 and not lops.probed[0]:
         # trivial (cover-only) trie: no order to maintain, just new columns
         return build_trie(new_cols, lops, budget=budget, mult=new_mult)
@@ -485,8 +487,7 @@ def _retire_rows(mult: torch.Tensor, order, groups, rows: torch.Tensor):
     slots and simply weigh nothing. Returns new tensors and modifies none:
     views of the trie already handed out keep the weights they were
     served with."""
-    mult = mult.clone()
-    mult[rows] = 0
+    mult = mult.index_fill(0, rows.to(torch.int64), 0)
     total = mult.sum(dtype=_I32)
     sm = mult[order] if order is not None else mult
     weights = [_segment_sum(sm, gd1, mult.shape[0]) for gd1 in groups]
@@ -508,9 +509,9 @@ def device_columns(rel, device) -> dict[str, torch.Tensor]:
             "dev_cols",
             (str(device), v),
             rel.columns[v],
-            lambda v=v: torch.as_tensor(
-                np.ascontiguousarray(rel.columns[v], dtype=np.int32)
-            ).to(device),
+            lambda v=v: TRANSFERS.to_device(
+                np.asarray(rel.columns[v], dtype=np.int32), device, f"column {v}"
+            ),
         )
         for v in rel.schema
     }
@@ -749,7 +750,7 @@ class TrieCache:
         dev = next(iter(used.values())).device
         if st.mult is not None:
             hm = np.concatenate([st.mult, np.zeros(pad, np.int32)])
-            mult = torch.as_tensor(hm).to(dev)
+            mult = TRANSFERS.to_device(hm, dev, "row weights")
         else:
             mult = (torch.arange(cap, dtype=_I32, device=dev) < st.total).to(_I32)
         # pads carry PAD_KEY keys and mult 0: the comparison sort routes
@@ -782,7 +783,7 @@ class TrieCache:
             bits.append(max(1, int(col.max()).bit_length()))
         device = next(iter(trie.cols.values())).device
         delta_dev = {
-            v: torch.as_tensor(np.ascontiguousarray(payload[v], dtype=np.int32)).to(device)
+            v: TRANSFERS.to_device(np.asarray(payload[v], dtype=np.int32), device, "appended rows")
             for v in flat
         }
         if trie.trivial:
@@ -817,7 +818,7 @@ class TrieCache:
             mult = torch.ones(trie.n, dtype=_I32, device=device)
         groups = [] if trie.trivial else trie.g[1:]
         mult, total, weights = _retire_rows(
-            mult, trie.order, groups, torch.as_tensor(rows).to(device)
+            mult, trie.order, groups, TRANSFERS.to_device(rows, device, "deleted rows")
         )
         trie.mult_col = mult
         trie.total_mult = total
@@ -1226,6 +1227,59 @@ def make_chain_executor(
     return run
 
 
+def make_count_fn(
+    plan: FreeJoinPlan,
+    capacities,
+    budget: int = 32,
+    *,
+    schedule: StaticSchedule | None = None,
+):
+    """Original count-only surface: fn(rel_cols) -> (count, overflowed),
+    a () int64 and a () bool tensor on the columns' device. One overflow
+    flag over every node (a need above its capacity, so the count is
+    short); no compaction. Kept for benchmarks and dry runs; the adaptive
+    runner reads make_executor's need vectors instead, so its retry loop
+    can grow the offending node. The reference's `impl` argument has no
+    counterpart: the device of the columns picks the kernels."""
+    if schedule is None:
+        schedule = _static_schedule(plan)
+    inner = make_executor(plan, capacities, budget=budget, agg="count", schedule=schedule)
+    caps = np.asarray([int(c) for c in capacities[: len(schedule)]], np.int32)
+    on_device: dict[torch.device, torch.Tensor] = {}
+
+    def run(rel_cols):
+        count, ne, _nc = inner(rel_cols)
+        if ne.device not in on_device:
+            on_device[ne.device] = TRANSFERS.to_device(caps, ne.device, "capacities")
+        return count, (ne > on_device[ne.device]).any()
+
+    return run
+
+
+def count_query(plan: FreeJoinPlan, relations, capacities, budget: int = 32, *, device="cuda"):
+    """Convenience: the compiled COUNT of `plan` over host relations, on
+    `device`. Returns (count, overflowed) as (int, bool), read back in one
+    copy. The reference's `impl` and `jit` arguments have no PyTorch
+    meaning and are dropped: there is no trace to compile, and the device
+    picks the kernels (the CUDA kernels on the card, their plain versions
+    on the CPU)."""
+    fn = make_count_fn(plan, capacities, budget)
+    count, overflow = fn(relations_to_cols(plan, relations, device))
+    host = TRANSFERS.to_host(torch.stack([count, overflow.to(torch.int64)]), "count")
+    return int(host[0]), bool(host[1])
+
+
+def relations_to_cols(plan: FreeJoinPlan, relations, device="cuda") -> dict[str, dict]:
+    """Device int32 columns for every alias the plan touches."""
+    return stage_relations_to_cols((("__root", plan),), relations, device)
+
+
+def stage_relations_to_cols(stages, relations, device="cuda") -> dict[str, dict]:
+    """Device int32 columns for every *base* alias a stage chain touches
+    (device_columns: uploaded once per column object and device)."""
+    return {a: device_columns(relations[a], device) for a in _base_aliases(stages)}
+
+
 def _needed_later_static(plan: FreeJoinPlan, k: int, probes, agg: str | None = "count") -> set[str]:
     need: set[str] = set()
     for sa in probes:
@@ -1363,6 +1417,15 @@ class AdaptiveExecutor:
         """Executors built so far: one per distinct capacity-vector chain."""
         return len(self._cache)
 
+    @property
+    def warm_read_backs(self) -> int:
+        """Read-backs of one warm run_relations call, each a counted copy
+        (core/transfers.py) that waits for the device: the needs, then the
+        result (the count; or valid, mult and one column per variable of
+        the root plan). With filters the call also uploads the constants,
+        a blocking copy too. The launch audit holds a warm call to it."""
+        return 2 if self.agg == "count" else 3 + len(tuple(self.plan.query.variables))
+
     def _as_chain(self, cp):
         from repro_torch.core.capacity import ChainCapacityPlan  # deferred: no cycle
 
@@ -1432,7 +1495,9 @@ class AdaptiveExecutor:
         if self.filter_vars:
             if filter_consts is None:
                 raise ValueError("this runner's template has filters")
-            filter_consts = torch.as_tensor(filter_consts, dtype=_I32).to(self.device)
+            filter_consts = TRANSFERS.to_device(
+                np.asarray(filter_consts, dtype=np.int32), self.device, "filter constants"
+            )
             want = (self.batch, len(self.filter_vars)) if self.batch else (len(self.filter_vars),)
             if tuple(filter_consts.shape) != want:
                 raise ValueError(f"filter_consts must be {want}")
@@ -1451,7 +1516,9 @@ class AdaptiveExecutor:
             # the caller reads them.
             sizes = [ne.shape[-1] for ne in out[-2]]
             host = torch.cat([t.reshape(rows, -1) for t in out[-2] + out[-1]], dim=1)
-            parts = np.split(host.cpu().numpy(), np.cumsum(sizes + sizes)[:-1], axis=1)
+            parts = np.split(
+                TRANSFERS.to_host(host, "needs"), np.cumsum(sizes + sizes)[:-1], axis=1
+            )
             if not self.batch:
                 parts = [p[0] for p in parts]
             needs_e, needs_c = parts[: len(sizes)], parts[len(sizes):]
@@ -1614,13 +1681,17 @@ class AdaptiveExecutor:
             self._record_feedback(relations)
         if self.agg == "count":
             if self.batch:  # the dispatch's one result read-back
-                return out.cpu().numpy().astype(np.int64)
-            return int(out.item())
+                return TRANSFERS.to_host(out, "counts").astype(np.int64)
+            return int(TRANSFERS.to_host(out, "count"))
         if self.batch:
             bound, valid, mult = out
-            host = ({v: a.cpu() for v, a in bound.items()}, valid.cpu(), mult.cpu())
+            cols = {v: TRANSFERS.to_host(a, f"rows {v}") for v, a in bound.items()}
+            valid, mult = TRANSFERS.to_host(valid, "valid"), TRANSFERS.to_host(mult, "mult")
             return [
-                materialize_compiled({v: a[b] for v, a in host[0].items()}, host[1][b], host[2][b])
+                (
+                    {v: a[b][valid[b]].astype(np.int64) for v, a in cols.items()},
+                    mult[b][valid[b]].astype(np.int64),
+                )
                 for b in range(self.batch)
             ]
         return materialize_compiled(*out)
@@ -1630,6 +1701,13 @@ def materialize_compiled(bound, valid, mult):
     """Strip padding lanes from an agg=None result: returns (cols, mult) as
     host numpy arrays over live rows only (the eager engine's contract —
     expand duplicate multiplicities with api.materialize)."""
-    v = valid.cpu().numpy()
-    cols = {name: a.cpu().numpy()[v].astype(np.int64) for name, a in bound.items()}
-    return cols, mult.cpu().numpy()[v].astype(np.int64)
+    v = TRANSFERS.to_host(valid, "valid")
+    # one column at a time: each full read-back dies as soon as it is
+    # indexed, so the next one reuses host pages already faulted in (three
+    # 4,194,304-lane columns read back first and indexed after took twice
+    # as long on q1 at SF 10, on the host of an H100 machine)
+    cols = {
+        name: TRANSFERS.to_host(a, f"rows {name}")[v].astype(np.int64)
+        for name, a in bound.items()
+    }
+    return cols, TRANSFERS.to_host(mult, "mult")[v].astype(np.int64)

@@ -48,6 +48,7 @@ regime).
 from __future__ import annotations
 
 import math
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -469,7 +470,13 @@ class JoinOrderOptimizer:
     subset AND the number of finalists re-ranked by device_cost.
     `feedback` is a relcache.CardFeedback (usually relcache.FEEDBACK);
     `adopt_margin` is the hysteresis: a re-ranking under new measurements
-    must beat the incumbent's device cost by this factor to displace it."""
+    must beat the incumbent's device cost by this factor to displace it.
+    `debug_lint` runs the static plan verifier (repro_torch.analysis.
+    planlint) over every device-costed finalist and raises on the first
+    invalid one — an enumeration bug surfaces at the enumerator, named,
+    instead of as a wrong winner three layers later. Off by default: it
+    lints `keep`+1 whole stage chains per cold choice. `linted` and
+    `lint_s` count the finalists it linted and the host seconds it took."""
 
     def __init__(
         self,
@@ -481,6 +488,7 @@ class JoinOrderOptimizer:
         compact_threshold: float = 0.25,
         feedback=None,
         adopt_margin: float = 0.8,
+        debug_lint: bool = False,
     ):
         self.level = int(level)
         self.budget = int(
@@ -491,6 +499,9 @@ class JoinOrderOptimizer:
         self.compact_threshold = float(compact_threshold)
         self.feedback = feedback
         self.adopt_margin = float(adopt_margin)
+        self.debug_lint = bool(debug_lint)
+        self.linted = 0
+        self.lint_s = 0.0
 
     # ---- public surface ----------------------------------------------
     def choose(
@@ -538,6 +549,28 @@ class JoinOrderOptimizer:
             tuple(sorted((a.alias, id(relations[a.alias])) for a in query.atoms)),
         )
 
+    def _lint_finalists(self, query, finalists) -> None:
+        """debug_lint mode: every enumerated finalist must derive a valid
+        stage chain. A finding here is an enumerator/stage-derivation bug,
+        so raise with the tree's signature in the message."""
+        from repro_torch.analysis.diagnostics import PlanVerificationError
+        from repro_torch.analysis.planlint import lint_chain, lint_tree
+
+        t0 = time.perf_counter()
+        for t, sig in finalists:
+            rep, stages = lint_tree(query, t)
+            if stages is not None:
+                rep.extend(lint_chain(stages))
+            self.linted += 1
+            if not rep.ok:
+                rep.error(
+                    "enumerated-plan-invalid",
+                    f"finalist[{sig}]",
+                    "device-costed finalist fails static verification",
+                )
+                raise PlanVerificationError(rep)
+        self.lint_s += time.perf_counter() - t0
+
     def _choose_uncached(self, query, relations, stats, *, incumbent):
         fb = self.feedback
         greedy = optimize(query, relations, stats=stats)
@@ -550,6 +583,8 @@ class JoinOrderOptimizer:
                 continue
             seen.add(sig)
             finalists.append((t, sig))
+        if self.debug_lint:
+            self._lint_finalists(query, finalists)
         if len(finalists) == 1:
             return finalists[0][0]
         costed = [

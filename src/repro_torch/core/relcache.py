@@ -57,6 +57,8 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from repro_torch.core.transfers import TRANSFERS
+
 
 class RelationRegistry:
     """Per-relation namespaces: `namespace(rel, "tries")` returns a dict
@@ -423,11 +425,13 @@ def append(rel, delta_cols: dict) -> MutationState:
         old = rel.columns[v]
         delta = arrs[v].astype(old.dtype, copy=False)
         new = np.concatenate([old, delta])
-        delta32 = torch.as_tensor(np.ascontiguousarray(delta, dtype=np.int32))
         for key, hit in list(dev_ns.items()):
             if key[1] == v and hit[0] is old:
                 dev = hit[1]
-                dev_ns[key] = (new, torch.cat([dev, delta32.to(dev.device)]))
+                up = TRANSFERS.to_device(
+                    np.asarray(delta, dtype=np.int32), dev.device, "appended rows"
+                )
+                dev_ns[key] = (new, torch.cat([dev, up]))
         hit = bit_ns.get(v)
         if hit is not None and hit[0] is old:
             if hit[1] is None or int(delta.min()) < 0:

@@ -42,6 +42,12 @@ _SIGNATURES = {
 _lock = threading.Lock()
 _launchers: dict[str, tuple] = {}
 
+# Calls of each kernel's plain version: the CPU branch of its wrapper, where
+# the card would launch the kernel. A CPU run of the launch audit counts
+# these in place of launches, and counts no tensor op made inside one.
+plain_calls = dict.fromkeys(KERNELS, 0)
+_plain_depth = 0
+
 
 def nvcc() -> str:
     """Path of the CUDA compiler: nvcc on PATH, else under CUDA_HOME."""
@@ -120,6 +126,23 @@ def launch(name: str, device: torch.device, *args) -> None:
         rc = fn(*ptrs, stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: {err_string(rc).decode()}")
+
+
+def run_plain(name: str, fn, *args):
+    """Run kernel `name`'s plain version `fn(*args)` (a wrapper's CPU
+    branch), counted in plain_calls."""
+    global _plain_depth
+    plain_calls[name] += 1
+    _plain_depth += 1
+    try:
+        return fn(*args)
+    finally:
+        _plain_depth -= 1
+
+
+def in_plain() -> bool:
+    """True while a kernel's plain version runs."""
+    return _plain_depth > 0
 
 
 def common_device(name: str, **tensors: torch.Tensor) -> torch.device:

@@ -50,7 +50,7 @@ def compact(csum: torch.Tensor, live: torch.Tensor, capacity: int) -> torch.Tens
     if live.shape != (1,):
         raise ValueError("compact: live must be (1,)")
     if device.type == "cpu":
-        return compact_plain(csum, live, capacity)
+        return _build.run_plain("compact", compact_plain, csum, live, capacity)
     src = torch.empty(capacity, dtype=torch.int32, device=device)
     _build.launch("compact", device, csum, live, src, csum.shape[0], capacity)
     launches += 1

@@ -56,7 +56,7 @@ def csr_expand(
     if total.shape != (1,):
         raise ValueError("csr_expand: total must be (1,)")
     if device.type == "cpu":
-        return csr_expand_plain(starts, base, total, capacity)
+        return _build.run_plain("csr_expand", csr_expand_plain, starts, base, total, capacity)
     fr = torch.empty(capacity, dtype=torch.int32, device=device)
     member = torch.empty(capacity, dtype=torch.int32, device=device)
     _build.launch(

@@ -88,7 +88,9 @@ def hash_probe(
     if query_keys.dim() != 2 or query_keys.shape[1] != table_keys.shape[1]:
         raise ValueError("hash_probe: query_keys must be (Q, K) with the table's K")
     if device.type == "cpu":
-        return hash_probe_plain(slots, table_keys, query_keys, budget)
+        return _build.run_plain(
+            "hash_probe", hash_probe_plain, slots, table_keys, query_keys, budget
+        )
     out = torch.empty(query_keys.shape[0], dtype=torch.int32, device=device)
     _build.launch(
         "hash_probe", device, slots, table_keys, query_keys, out,

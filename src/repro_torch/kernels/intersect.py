@@ -65,7 +65,7 @@ def intersect(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Ten
     if a.dim() != 1 or b.dim() != 1 or b.shape[0] == 0:
         raise ValueError("intersect: a must be (Q,) and b (N,) with N >= 1")
     if device.type == "cpu":
-        return intersect_plain(a, b)
+        return _build.run_plain("intersect", intersect_plain, a, b)
     q = a.shape[0]
     mask = torch.empty(q, dtype=torch.bool, device=device)
     pos = torch.empty(q, dtype=torch.int32, device=device)

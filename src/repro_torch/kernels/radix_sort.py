@@ -61,7 +61,7 @@ def radix_rank(csum: torch.Tensor, kd: torch.Tensor, kt: torch.Tensor) -> torch.
     if kd.shape != (csum.shape[1],) or kt.shape != kd.shape:
         raise ValueError("radix_rank: kd and kt must be (N,)")
     if device.type == "cpu":
-        return radix_rank_plain(csum, kd, kt)
+        return _build.run_plain("radix_rank", radix_rank_plain, csum, kd, kt)
     src = torch.empty(csum.shape[1], dtype=torch.int32, device=device)
     _build.launch("radix_rank", device, csum, kd, kt, src, csum.shape[1])
     launches += 1

@@ -165,21 +165,31 @@ class JoinServeEngine:
         plan_tree=None,
         deadline_ms: float | None = None,
     ) -> JoinRequest:
-        """Canonicalize and enqueue one query; returns its JoinRequest
-        handle (result/error/done are filled by step()).
+        """Canonicalize, statically verify, and enqueue one query; returns
+        its JoinRequest handle (result/error/done are filled by step()).
 
-        A query canonicalize refuses (a ValueError: an unknown filter var,
-        a plan tree that does not match) is REJECTED (error set,
+        Verification failures (a PlanVerificationError from the static
+        verifier, or a ValueError from canonicalize: an unknown filter var,
+        a plan tree that does not match) REJECT the request (error set,
         done=True, admission counter bumped) instead of raising or
-        enqueuing: a raise would crash the submitting tenant's intake
-        loop. A rejected handle comes back immediately and never touches
-        the serving loop."""
+        enqueuing: a raise would crash the submitting tenant's whole intake
+        loop, and an enqueued invalid plan would fail mid-dispatch inside a
+        batch shared with innocent co-template tenants. A rejected handle
+        comes back immediately and never touches the serving loop."""
+        from repro_torch.analysis.planlint import lint_query, lint_template, lint_tree
+
+        # the ORIGINAL query, pre-canonicalization: canonicalize silently
+        # drops head vars no atom binds, so the template would look clean
+        rep = lint_query(query)
+        rep.extend(lint_tree(query, plan_tree)[0])
         try:
+            rep.raise_errors()
             template, consts = canonicalize(
                 query, relations, filters, plan_tree=plan_tree, agg=agg,
                 options=self.options,
             )
-        except ValueError as e:
+            lint_template(template).raise_errors()
+        except ValueError as e:  # PlanVerificationError is a ValueError
             req = JoinRequest(
                 rid=self._next_rid, tenant=tenant,
                 template=None, consts=np.zeros(0, np.int32),

@@ -54,6 +54,7 @@ from repro_torch.core.compiled import (
 )
 from repro_torch.core.optimizer import JoinOrderOptimizer, Stats
 from repro_torch.core.plan import BinaryPlan, stage_plans
+from repro_torch.core.transfers import TRANSFERS
 from repro_torch.relational.relation import Relation
 from repro_torch.relational.schema import Query
 from repro_torch.serve.templates import PlanTemplate, canonicalize
@@ -280,7 +281,7 @@ class StandingQueryEngine:
                 return True
             if is_root:
                 if sq.template.agg == "count":
-                    sq.result = int(out.item())  # the refresh's one read-back
+                    sq.result = int(TRANSFERS.to_host(out, "count"))  # the refresh's one read-back
                 else:
                     sq.result = materialize_compiled(*out)
                 sq.result_version += 1

@@ -82,6 +82,23 @@ def _rebuild_plan(tree, canon: dict[str, Atom]):
     return BinaryPlan(_rebuild_plan(tree.left, canon), _rebuild_plan(tree.right, canon))
 
 
+def recanonicalize(template: PlanTemplate) -> tuple[PlanTemplate, np.ndarray]:
+    """Run `canonicalize` over a template's own canonical query (with
+    placeholder constants). Canonicalization must be a fixed point —
+    ``recanonicalize(t).key == t.key`` — or two spellings of one query can
+    land on distinct template keys and each build their own executor.
+    The static verifier (repro_torch.analysis) checks this per template;
+    keeping the probe here keeps it honest against the real `canonicalize`."""
+    return canonicalize(
+        template.query,
+        template.relations,
+        dict.fromkeys(template.filter_vars, 0),
+        plan_tree=template.plan_tree,
+        agg=template.agg,
+        options=template.options,
+    )
+
+
 def canonicalize(
     query: Query,
     relations: dict[str, Relation],

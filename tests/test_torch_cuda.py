@@ -341,3 +341,53 @@ def test_mask_path_launches_like_one_unfiltered_call(cuda, rng):
     one = launches(lambda: plain.run_relations(rels))
     many = launches(lambda: batched.run_relations(rels, filter_consts=consts))
     assert many == one and one[1] > 0 and one[3] == 0, (one, many)
+
+
+def sync_debug_count(fn) -> int:
+    """Host synchronizations `fn` makes, as torch.cuda.set_sync_debug_mode
+    ("warn") reports them (its one-time prototype notice is not one)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("called a synchronizing CUDA operation" in str(w.message) for w in seen)
+
+
+@pytest.mark.parametrize("name", ["star", "bushy", "star-filtered", "star-batched"])
+def test_audit_syncs_equal_sync_debug_mode(cuda, name):
+    """The launch audit's host syncs of a warm corpus call are the ones
+    the card's sync debug mode counts, and the call audits clean with K1
+    launched once per probe."""
+    from repro_torch.analysis import corpus, launch_audit
+
+    case = {c.name: c for c in corpus.corpus_cases()}[name]
+    runner, rels = corpus.build_runner(case, device="cuda")
+    runner.run_relations(rels, filter_consts=case.filter_consts)
+    box = []
+    n = sync_debug_count(lambda: box.append(
+        launch_audit.trace_runner(runner, rels, filter_consts=case.filter_consts)))
+    trace = box[0]
+    assert trace.syncs == n, trace.sync_sites
+    rep = launch_audit.audit_runner(runner, rels, trace=trace)
+    assert rep.rules() <= {"small-uploads"}, str(rep)
+    limits = launch_audit.runner_limits(runner)
+    assert trace.launches["hash_probe"] == trace.kernel_calls["hash_probe"] == limits["probes"]
+
+
+def test_verify_and_count_query_on_card(cuda, rng):
+    from repro_torch.core.compiled import count_query
+    from repro_torch.core.plan import binary2fj, factor
+
+    q = triangle_query()
+    rels = {a.alias: Relation(a.alias, {v: rng.integers(0, 40, 3000) for v in a.vars})
+            for a in q.atoms}
+    got = compiled_free_join(q, rels, options=ExecOptions(device="cuda", verify=True))
+    assert got == compiled_free_join(q, rels, options=ExecOptions(device="cpu"))
+    fj = factor(binary2fj(q.atoms, q))
+    assert count_query(fj, rels, [1 << 20] * 3) == (got, False)
+    assert count_query(fj, rels, [4] * 3)[1] is True

@@ -194,6 +194,10 @@ def test_overflow_retry_from_undersized_plan(rng):
     assert (ex.retries, ex.compiles) == (jex.retries, compiles)
 
 
-def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        ExecOptions(verify=True)
+def test_unported_options_raise(rng):
+    """No ExecOptions field is left unported: verify=True, the last one,
+    now runs the plan verifier instead of raising NotImplementedError, and
+    the verified run equals the reference's, bushy chain included."""
+    for make in (triangle, bushy):
+        got, want, info, _ = run_both(make(rng), "count", verify=True)
+        assert got == want and info["options"].verify
