@@ -106,6 +106,28 @@ Phases (any failure raises, and the script exits non-zero):
      the planner's capacities: equal to the oracle, no overflow. The
      corpus gate, python -m repro_torch.analysis --device cuda, in
      process: exit 0. The `analysis:` line holds it all.
+  4b. Distributed path (counters set to 0 before, read after; K1 and K2
+     must launch): repro_torch.core.distributed under an NCCL process
+     group of one rank (FileStore under build/), with every run reduced
+     through all_reduce (COLLECTIVES must move). spmd_count on LSQB q1 at
+     SF 10 (the main path's `knows`) at 1, 4 and 8 shards and on the
+     main path's star at 4 shards (its shares fall on y: the distributed
+     hash join), planner capacities. Each runs cold over new relation
+     objects (partition, shard trie builds and planning timed apart, then
+     the first call) and warm over the main path's relations: a new
+     SpmdCounter re-partitions nothing and builds no trie, its calls
+     retry nothing; median-of-3 ms, one warm call's host syncs
+     (sync_count, equal at every shard count and at most 2), its
+     crossings (one read-back), K1/K2 launches (against num_shards times
+     the 1-shard call's) and device ms (torch.profiler), the frontier
+     one warm run needs per node, the padded fragment rows per alias
+     against the mean, and peak MiB. Every count equals the numpy
+     oracle, and the 1-shard count compiled_free_join's. Then
+     distributed_join_host on q1 and on friends of friends (knows(a,b),
+     knows(b,c): q1 at SF 1 may have no triangle) at SF 1, 8 shards, on
+     the card: each count and the sorted rows equal the oracle's. The
+     `distributed:` line holds it all, beside the card's name and power
+     limit.
   5. K5's path (counter set to 0 before, read after): ops.intersect_sorted
      of the 1,800,200 knows destinations into the sorted distinct knows
      sources, held against numpy.
@@ -138,8 +160,9 @@ Phases (any failure raises, and the script exits non-zero):
      times per call beside them. K5's record holds its two other shapes
      under "shapes"; every record its launches on its path ("launches"),
      on the eager path ("eager_launches"), the serving path
-     ("serving_launches"), the chaos path ("chaos_launches") and the
-     analysis path ("analysis_launches").
+     ("serving_launches"), the chaos path ("chaos_launches"), the
+     analysis path ("analysis_launches") and the distributed path
+     ("distributed_launches").
 
 The last line is {"ok": true, "device": {...}}; the line before it the
 `kernels` JSON record, and before that the card's name and power limit.
@@ -214,24 +237,30 @@ def kernel_modules():
 # ---------------------------------------------------------------------------
 
 
-def triangle_oracle(a: np.ndarray, b: np.ndarray):
-    """Bag triangles of knows(a,b), knows(b,c), knows(c,a): enumerate the
-    row-level 2-paths (a,b,c) and count the closing edges (c,a) of each.
-    Returns (count, rows (M, 3) with multiplicity expanded)."""
+def two_paths(a: np.ndarray, b: np.ndarray):
+    """The row-level 2-paths (a, b, c) of knows(a,b), knows(b,c), one per
+    pair of rows (bag semantics), as three columns."""
     order = np.argsort(a, kind="stable")
     a_s, b_s = a[order], b[order]
     lo = np.searchsorted(a_s, b, "left")
     cnt = np.searchsorted(a_s, b, "right") - lo
     first = np.repeat(np.arange(len(a)), cnt)
     offs = np.arange(int(cnt.sum())) - np.repeat(np.cumsum(cnt) - cnt, cnt)
-    pa, pb, pc = a[first], b[first], b_s[lo[first] + offs]
+    return a[first], b[first], b_s[lo[first] + offs]
+
+
+def triangle_oracle(a: np.ndarray, b: np.ndarray):
+    """Bag triangles of knows(a,b), knows(b,c), knows(c,a): enumerate the
+    row-level 2-paths (a,b,c) and count the closing edges (c,a) of each.
+    Returns (count, rows (M, 3) with multiplicity expanded, 2-paths)."""
+    pa, pb, pc = two_paths(a, b)
     width = int(max(a.max(), b.max())) + 1
     ekeys, ecount = np.unique(a * width + b, return_counts=True)
     want = pc * width + pa
     pos = np.clip(np.searchsorted(ekeys, want), 0, len(ekeys) - 1)
     close = np.where(ekeys[pos] == want, ecount[pos], 0)
     rows = np.repeat(np.stack([pa, pb, pc], axis=1), close, axis=0)
-    return int(close.sum()), rows, int(cnt.sum())
+    return int(close.sum()), rows, len(pa)
 
 
 def star_oracle(rels, dom: int) -> int:
@@ -1156,6 +1185,193 @@ def analysis_path(device: str, seed: int, workloads, ref, sync):
 
 
 # ---------------------------------------------------------------------------
+# the distributed path: HyperCube partition + SpmdCounter under NCCL
+# ---------------------------------------------------------------------------
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+
+
+def spmd_cell(name, q, rels, num_shards: int, want: int, group, device: str, sync) -> dict:
+    """One workload at one shard count: cold over new relation objects
+    (the constructor, split into its own set-up steps, then the first
+    call), then warm over the cached relations: a second SpmdCounter must
+    re-partition nothing, build no trie and retry nothing; median-of-3 ms,
+    one warm call's host syncs, crossings, launches and device ms, the
+    needs of one warm run, and the padded fragment rows against the mean."""
+    import torch
+
+    from repro_torch.core import distributed as D
+    from repro_torch.core.plan import binary2fj, factor
+    from repro_torch.core.transfers import TRANSFERS
+
+    mods = kernel_modules()
+    fj = factor(binary2fj(q.atoms, q))
+    fresh = fresh_copy(rels)
+    D._cap_plan_cache.clear()
+    torch.cuda.reset_peak_memory_stats()
+    misses = (D._partition_cache.misses, D._shard_trie_cache.misses)
+    t0 = time.perf_counter()
+    cold = D.SpmdCounter(q, fresh, fj, num_shards=num_shards, group=group, device=device)
+    sync()
+    t1 = time.perf_counter()
+    got = cold()
+    t2 = time.perf_counter()
+    if got != want:
+        fail(f"distributed {name} x{num_shards} cold: {got} != oracle {want}")
+    if (D._partition_cache.misses - misses[0], D._shard_trie_cache.misses - misses[1]) != (1, 1):
+        fail(f"distributed {name} x{num_shards}: a cold counter over new relations did not "
+             "partition and build its tries once")
+    rec = {"shards": num_shards, "shares": cold.shares, "count": got,
+           "cold_s": {**cold.setup_s, "constructor": t1 - t0, "first_call": t2 - t1,
+                      "total": t2 - t0},
+           "cold_retries": cold.retries, "cold_compiles": cold.compiles,
+           "cap_plan": list(cold.cap_plan.capacities)}
+    del cold, fresh
+    # warm: the main path's relation objects, partitioned and planned once
+    D.spmd_count(q, rels, fj, num_shards=num_shards, group=group, device=device)
+    misses = (D._partition_cache.misses, D._shard_trie_cache.misses)
+    ctr = D.SpmdCounter(q, rels, fj, num_shards=num_shards, group=group, device=device)
+    if (D._partition_cache.misses, D._shard_trie_cache.misses) != misses:
+        fail(f"distributed {name} x{num_shards}: a warm counter re-partitioned or rebuilt")
+    times = []
+    for i in range(4):
+        t = time.perf_counter()
+        got = ctr()
+        sync()
+        times.append((time.perf_counter() - t) * 1e3)
+        if got != want:
+            fail(f"distributed {name} x{num_shards} warm call {i}: {got} != oracle {want}")
+    before = {k: m.launches for k, m in mods.items()}
+    with TRANSFERS.record() as crossings:
+        syncs = sync_count(ctr)
+    launches = {k: m.launches - before[k] for k, m in mods.items()}
+    # the frontier one warm run needs per node (max over shards) beside
+    # its capacities, and the device time of one warm call
+    _count, need_expand, _nc = ctr.run_once(ctr.cap_plan)
+    dev_ms, timer = device_ms(ctr, iters=3, warmup=1)
+    if ctr.retries or ctr.compiles != 1:
+        fail(f"distributed {name} x{num_shards}: warm calls retried {ctr.retries} times, "
+             f"built {ctr.compiles} executors")
+    if [kind for kind, _w, _n in crossings] != ["read"]:
+        fail(f"distributed {name} x{num_shards}: a warm call crossed {crossings}")
+    shards = D.partition(q, rels, ctr.shares, num_shards)
+    shard_rows = {}
+    for a in q.atoms:
+        rows = np.array([s[a.alias].num_rows for s in shards])
+        shard_rows[a.alias] = {"padded": int(rows.max(initial=1)),
+                               "mean": float(rows.sum()) / num_shards}
+    rec.update(warm_ms=float(np.median(times[1:])), warm_first_ms=times[0], syncs=syncs,
+               crossings=[what for _kind, what, _n in crossings], device_ms=dev_ms,
+               timer=timer,
+               need_expand=need_expand.tolist(),
+               launches={k: launches[k] for k in JOIN_KERNELS}, shard_rows=shard_rows,
+               skew={a: r["padded"] / r["mean"] if r["mean"] else None
+                     for a, r in shard_rows.items()},
+               peak_mib=torch.cuda.max_memory_allocated() / 2**20)
+    return rec
+
+
+def distributed_path(device: str, seed: int, workloads, ref, sync, host_sf: float = 1):
+    """The distributed phase (see the module docstring): an NCCL group of
+    one rank; spmd_count on q1 at SF 10 at 1, 4 and 8 shards and on the
+    star at 4, cold then warm; distributed_join_host on q1 and friends of
+    friends at SF 1, 8 shards. Prints the `distributed:` line and returns
+    the kernels' largest inputs on the path: path name -> capture_largest's
+    record."""
+    import torch.distributed as dist
+
+    from repro_torch.core import compiled_free_join
+    from repro_torch.core import distributed as D
+    from repro_torch.core.plan import binary2fj, factor
+    from repro_torch.relational.datagen import lsqb_knows, lsqb_q1
+    from repro_torch.relational.schema import Atom, Query
+
+    q1, q1_rels, star, star_rels, opts = workloads
+    store_path = ROOT / "build" / "nccl_store"
+    store_path.parent.mkdir(exist_ok=True)
+    store_path.unlink(missing_ok=True)
+    dist.init_process_group("nccl", store=dist.FileStore(str(store_path), 1), rank=0,
+                            world_size=1)
+    try:
+        if dist.get_backend() != "nccl":
+            fail(f"distributed: the group's backend is {dist.get_backend()}, not nccl")
+        group = dist.group.WORLD
+        collectives = D.COLLECTIVES
+        rec = {"card": card_line(), "backend": dist.get_backend(), "q1": [], "star": []}
+        for num_shards in (1, 4, 8):
+            rec["q1"].append(spmd_cell("q1", q1, q1_rels, num_shards, ref["q1_count"], group,
+                                       device, sync))
+            print(f"distributed: q1 x{num_shards} " + json.dumps(rec["q1"][-1]), flush=True)
+        single = compiled_free_join(q1, q1_rels, agg="count", options=opts)
+        if single != rec["q1"][0]["count"]:
+            fail(f"distributed: 1 shard counted {rec['q1'][0]['count']}, "
+                 f"compiled_free_join {single}")
+        rec["star"].append(spmd_cell("star", star, star_rels, 4, ref["star_count"], group,
+                                     device, sync))
+        # the kernels' inputs on the padded configurations (1 shard pads
+        # nothing), for parity: one more warm call of each, outside the
+        # timed calls; and the largest probe of a table that holds pad keys
+        with capture_largest() as spmd_seen, capture_largest(keep=probes_pad_key) as pad_seen:
+            for query, rels, n, want in ((q1, q1_rels, 4, ref["q1_count"]),
+                                         (q1, q1_rels, 8, ref["q1_count"]),
+                                         (star, star_rels, 4, ref["star_count"])):
+                got = D.spmd_count(query, rels, factor(binary2fj(query.atoms, query)),
+                                   num_shards=n, group=group, device=device)
+                if got != want:
+                    fail(f"distributed x{n}: {got} != oracle {want}")
+        if "hash_probe" not in pad_seen:
+            fail("distributed: no probe of the padded shards held a pad key")
+        rec["collectives"] = D.COLLECTIVES - collectives
+        if rec["collectives"] <= 0:
+            fail("distributed: no all_reduce ran under the NCCL group")
+    finally:
+        dist.destroy_process_group()
+        store_path.unlink(missing_ok=True)
+    syncs = {c["shards"]: c["syncs"] for c in rec["q1"]}
+    if len(set(syncs.values())) != 1 or max(syncs.values()) > 2:
+        fail(f"distributed: warm host syncs by shard count {syncs}")
+    one = rec["q1"][0]["launches"]
+    rec["launch_ratio"] = {
+        c["shards"]: {k: c["launches"][k] / one[k] if one[k] else None
+                      for k in ("hash_probe", "csr_expand")}
+        for c in rec["q1"]}
+
+    # the host path: partition + the eager engine per shard, on the card;
+    # q1, and friends of friends, whose rows are never few
+    knows = lsqb_knows(sf=host_sf, seed=seed + 1)
+    q, rels = lsqb_q1(knows)
+    fof = Query([Atom("knows", ("a", "b"), "K1"), Atom("knows", ("b", "c"), "K2")])
+    _count, tri_rows, _ = triangle_oracle(knows.columns["a"], knows.columns["b"])
+    fof_rows = np.stack(two_paths(knows.columns["a"], knows.columns["b"]), axis=1)
+    rec["host_path"] = {"sf": host_sf, "rows": knows.num_rows, "shards": 8}
+    for name, query, want in (("q1", q, tri_rows), ("fof", fof, fof_rows)):
+        t = time.perf_counter()
+        got = D.distributed_join_host(query, rels, 8, agg="count", device=device)
+        t_count = time.perf_counter() - t
+        t = time.perf_counter()
+        cols = D.distributed_join_host(query, rels, 8, device=device)
+        t_rows = time.perf_counter() - t
+        got_rows = head_rows(cols, query.head)
+        if got != len(want) or not np.array_equal(got_rows, sorted_rows(want)):
+            fail(f"distributed_join_host {name}: {got} / {len(got_rows)} rows != oracle "
+                 f"{len(want)}")
+        rec["host_path"][name] = {"count": got, "count_s": t_count, "rows_s": t_rows}
+    with capture_largest() as host_seen:
+        D.distributed_join_host(q, rels, 8, device=device)
+    print("distributed: " + json.dumps(rec), flush=True)
+    return {path: {name: args for name, (_size, args) in seen.items()}
+            for path, seen in (("distributed SPMD", spmd_seen),
+                               ("distributed SPMD pad-key probe", pad_seen),
+                               ("distributed host path", host_seen))}
+
+
+# ---------------------------------------------------------------------------
 # the eager path: free_join, binary_join, generic_join, the hybrid baseline
 # ---------------------------------------------------------------------------
 
@@ -1431,10 +1647,11 @@ def intersect_path(knows, device):
 
 
 @contextmanager
-def capture_largest():
+def capture_largest(keep=None):
     """Record (cloned) the largest call of each kernel wrapper made while
     the context is open, at the sites the main path calls them from; an
-    expansion's size is its capacity times its search depth."""
+    expansion's size is its capacity times its search depth. `keep(name,
+    args)`, if given, picks the calls that may be recorded."""
     import torch
     from repro_torch.kernels import ops, radix_sort
 
@@ -1445,7 +1662,7 @@ def capture_largest():
 
         def recorder(*args):
             size = size_of(*args)
-            if name not in seen or size > seen[name][0]:
+            if (name not in seen or size > seen[name][0]) and (keep is None or keep(name, args)):
                 seen[name] = (size, tuple(a.clone() if isinstance(a, torch.Tensor) else a
                                           for a in args))
             return orig(*args)
@@ -1468,6 +1685,12 @@ def capture_largest():
             setattr(owner, attr, orig)
 
 
+def probes_pad_key(name, args) -> bool:
+    """Whether a call is a probe of a table holding a key with a negative
+    column: the SPMD path's pad sentinels, which no other path has."""
+    return name == "hash_probe" and bool((args[1] < 0).any())
+
+
 def capture_main_path_inputs(workloads):
     """One more warm call of each query (probe, expand, compact) and one
     cold sort of the largest relation's levels (radix rank), with the
@@ -1488,7 +1711,8 @@ def capture_main_path_inputs(workloads):
 
 def edge_cases(device):
     """Per kernel, inputs the main path may not reach: ragged sizes, a
-    one-row table, all -1 query lanes, and total/live = 0."""
+    one-row table, all -1 query lanes, a table of negative (pad) keys, and
+    total/live = 0."""
     import torch
     from repro_torch.kernels import ops
 
@@ -1497,11 +1721,20 @@ def edge_cases(device):
     one = ops.build_table(t([[5, 9]]))
     many = ops.build_table(t(np.unique(rng.integers(0, 1 << 20, (3000, 2)), axis=0)))
     ragged_q = np.vstack([np.asarray(many.keys.cpu())[:500], rng.integers(0, 1 << 20, (533, 2))])
+    # a padded shard's table: real keys, then the SPMD path's pad sentinels
+    # -(offset + row) - 1 in every column, and the most negative int32 key
+    sentinels = -(1_000 + np.arange(2_000)) - 1
+    padded_keys = np.vstack([np.asarray(many.keys.cpu())[:1000],
+                             np.stack([sentinels, sentinels], axis=1),
+                             [[np.iinfo(np.int32).min, 7]]])
+    padded = ops.build_table(t(padded_keys))
+    padded_q = np.vstack([padded_keys[::3], padded_keys[:3000:5] - 1, -padded_keys[1000:3000:7]])
     cases = {
         "hash_probe": [
             (one.slots, one.keys, t([[5, 9], [9, 5], [-1, 9]]), 32),
             (many.slots, many.keys, t(np.full((1033, 2), -1)), 32),
             (many.slots, many.keys, t(ragged_q), 32),
+            (padded.slots, padded.keys, t(padded_q), 32),
         ],
     }
     counts = rng.integers(0, 5, 777)
@@ -1898,6 +2131,10 @@ def main(argv=None) -> int:
                                        args.seed, workloads, eager_ref, sync)
     _, analysis_launches = drive("analysis path", JOIN_KERNELS, analysis_path, device,
                                  args.seed, workloads, eager_ref, sync)
+    distributed_seen, distributed_launches = drive("distributed path",
+                                                   ("hash_probe", "csr_expand"),
+                                                   distributed_path, device, args.seed,
+                                                   workloads, eager_ref, sync)
     k5_args, k5_counts = drive("intersect path", ("intersect",), intersect_path,
                                workloads[1]["K1"], device)
     launches["intersect"], paths["intersect"] = k5_counts["intersect"], "intersect path"
@@ -1907,19 +2144,16 @@ def main(argv=None) -> int:
     k5_shapes = intersect_shapes(args.seed, device)
     errors = parity(mods, captured, {"standing-q1 ingest": q1_seen,
                                      "stage replay": replay_seen,
-                                     "batched dispatch": serving_seen}, eager_seen, paths,
-                    k5_shapes, device)
+                                     "batched dispatch": serving_seen, **distributed_seen},
+                    eager_seen, paths, k5_shapes, device)
     cold_breakdown(workloads, sync)
     kernels = timing(mods, captured, launches, {"eager_launches": eager_launches,
                                                 "serving_launches": serving_launches,
                                                 "chaos_launches": chaos_launches,
-                                                "analysis_launches": analysis_launches},
+                                                "analysis_launches": analysis_launches,
+                                                "distributed_launches": distributed_launches},
                      errors, paths, k5_shapes)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip()
-    print(f"card: {smi}")
+    print(f"card: {card_line()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

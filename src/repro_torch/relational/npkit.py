@@ -13,6 +13,9 @@ the device of the input tensors:
   both give numpy's `lexsort` permutation. Its group starts come from the compaction (K3).
 * `csr_expand` is the CSR-expansion kernel (K2) at a capacity of exactly
   the expansion's total.
+* `mix64` stays host numpy, bit for bit the reference's: the distributed
+  driver's hypercube partition (core/distributed.py) hashes host columns
+  with it, so every row lands on the same shard as in the reference.
 
 Index outputs are int32 tensors. Each function reads a size back to the
 host once (a group count, an expansion total, a live count) and never
@@ -20,6 +23,7 @@ loops over rows.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import ops
@@ -27,6 +31,22 @@ from repro_torch.kernels.hash_probe import PROBE_BUDGET
 
 _I32 = torch.int32
 I32_MAX = 2**31 - 1
+
+_FNV = np.int64(-3750763034362895579)  # 0xCBF29CE484222325 as signed
+_K1 = np.int64(-7046029254386353131)  # 0x9E3779B97F4A7C15
+_K2 = np.int64(-4417276706812531889)  # 0xBF58476D1CE4E5B9
+
+
+def mix64(cols: list[np.ndarray]) -> np.ndarray:
+    """Column-wise 64-bit mix (splitmix-style) of host columns, vectorized
+    over rows: int64 arithmetic with wrapping multiplies and an arithmetic
+    shift, as the reference computes it."""
+    with np.errstate(over="ignore"):
+        h = np.full(len(cols[0]) if cols else 0, _FNV, dtype=np.int64)
+        for c in cols:
+            h = (h ^ (c.astype(np.int64) * _K1)) * _K2
+            h ^= h >> np.int64(29)
+    return h
 
 
 def _empty(device) -> torch.Tensor:

@@ -391,3 +391,72 @@ def test_verify_and_count_query_on_card(cuda, rng):
     fj = factor(binary2fj(q.atoms, q))
     assert count_query(fj, rels, [1 << 20] * 3) == (got, False)
     assert count_query(fj, rels, [4] * 3)[1] is True
+
+
+# ---------------------------------------------------------------------------
+# the distributed driver (core/distributed.py) on the card
+# ---------------------------------------------------------------------------
+
+
+def test_hash_probe_kernel_negative_keys(cuda, rng):
+    """The distributed driver's pad rows carry negative sentinels, -(offset
+    + row) - 1: K1 hashes and compares them as the plain version does."""
+    pads = -(np.arange(5000) + 1)
+    keys = np.unique(np.concatenate([pads, rng.integers(0, 1 << 20, 5000),
+                                     [I32_MIN, I32_MIN + 1, -(2**30)]]))
+    for k in (1, 3):
+        table_keys = np.stack([np.roll(keys, j) for j in range(k)], axis=1)
+        table = ops.build_table(on(cuda, table_keys))
+        qs = np.vstack([table_keys[rng.integers(0, len(keys), 3000)],
+                        np.stack([-rng.integers(1, 2**31, 3000)] * k, axis=1),
+                        table_keys[-5:] + 1])
+        assert_kernel_matches_plain(hash_probe, "hash_probe", table.slots, table.keys,
+                                    on(cuda, qs), 32)
+
+
+def _spmd_case(rng, n=3000, dom=40):
+    from repro_torch.core.plan import binary2fj, factor
+
+    q = triangle_query()
+    rels = {a.alias: Relation(a.alias, {v: rng.integers(0, dom, n) for v in a.vars})
+            for a in q.atoms}
+    return q, rels, factor(binary2fj(q.atoms, q))
+
+
+@pytest.mark.parametrize("num_shards", [1, 4, 8])
+@pytest.mark.parametrize("capacities", [None, [64] * 4])
+def test_spmd_count_on_card_matches_cpu(cuda, num_shards, capacities, rng):
+    from repro_torch.core import distributed as D
+
+    q, rels, fj = _spmd_case(rng)
+    results = {}
+    for device in ("cpu", "cuda"):
+        D._cap_plan_cache.clear()
+        info = {}
+        count = D.spmd_count(q, rels, fj, capacities, num_shards=num_shards, device=device,
+                             info=info)
+        results[device] = (count, info["shares"], str(info["cap_plan"]), info["retries"],
+                           info["compiles"])
+    assert results["cuda"] == results["cpu"]
+    host = D.distributed_join_host(q, rels, num_shards, agg="count", device="cuda")
+    assert host == results["cpu"][0]
+
+
+def test_spmd_warm_call_syncs_and_launches(cuda, rng):
+    """A warm SpmdCounter call makes one host sync (the count and needs
+    read-back) at every shard count, and launches K1/K2 once per shard
+    for each launch of the 1-shard call."""
+    from repro_torch.core import distributed as D
+
+    q, rels, fj = _spmd_case(rng)
+    syncs, launches = {}, {}
+    for num_shards in (1, 4):
+        ctr = D.SpmdCounter(q, rels, fj, num_shards=num_shards, device="cuda")
+        want, retries = ctr(), ctr.retries
+        before = (hash_probe.launches, csr_expand.launches)
+        box = []
+        syncs[num_shards] = sync_debug_count(lambda c=ctr: box.append(c()))
+        launches[num_shards] = (hash_probe.launches - before[0], csr_expand.launches - before[1])
+        assert box == [want] and ctr.retries == retries, "a warm call retries nothing"
+    assert syncs[1] == syncs[4] == 1, syncs
+    assert launches[4] == tuple(4 * n for n in launches[1]) and launches[1][0] > 0, launches
