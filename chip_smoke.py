@@ -128,6 +128,37 @@ Phases (any failure raises, and the script exits non-zero):
      the card: each count and the sorted rows equal the oracle's. The
      `distributed:` line holds it all, beside the card's name and power
      limit.
+  4c. Model path (counters set to 0 before, read after; the LM stack runs
+     none of K1-K5, and its `model_launches` say so): the decode serving
+     stack of repro_torch.models and repro_torch.serve.DecodeServeEngine,
+     eager, with TF32 off for matmuls (checked). The ten reduced configs
+     in fp32 on the card against the same parameters on the CPU:
+     apply_model's logits and 8 decode_steps (logits and every cache
+     leaf), atol 1e-4. qwen2-1.5b whole (28 layers, d 1536, 12 heads and
+     2 kv heads, d_ff 8960, vocab 151,936; 1.544 B parameters, random
+     from --seed): at compute_dtype float32, a 16-token prompt's logits on
+     the card and on the CPU within 2e-3; DecodeServeEngine(slots = 4,
+     max_len = 256) serves 8 requests (prompts of 8-64 ids from --seed,
+     max_new 16), and every emitted token is the argmax of apply_model
+     over its prompt plus the tokens before it wherever that top-2 gap is
+     at least 1e-3 (the others are counted as skipped), its decode logits
+     the prefill's within 2e-3. Then the config's own dtypes (fp32
+     weights, bf16 compute, cast once by the engine) on the same trace:
+     requests, tokens, engine steps and decode calls, wall s, tokens/s,
+     the median decode step; in steady state (4 slots busy) one step's
+     host syncs (sync_count), device ms, device ops and idle share
+     (torch.profiler); peak MiB; the step's bound (the bytes it must read,
+     every weight at its read dtype and the cache, over 3.35 TB/s).
+     rwkv6-1.6b whole (1.584 B) and mixtral-8x22b at full width with 2 of
+     its 56 layers (5.41 B, 10.8 GB of bf16 weights; the whole model is
+     282 GB): the same bf16 run, and the fp32 decode-vs-prefill check at 2
+     requests (mixtral with capacity_factor 4, so a prefill drops no
+     token; rwkv6 with each request alone in an engine, since the engine's
+     batched steps advance a recurrent slot's state, and bounded by twice
+     its own card-vs-CPU prefill difference, which exceeds 2e-3).
+     jamba-1.5-large-398b runs only reduced: one 8-layer pattern unit at
+     full width holds about 77 GB of expert weights. The `model:` line
+     holds it all, beside the card's name and power limit.
   5. K5's path (counter set to 0 before, read after): ops.intersect_sorted
      of the 1,800,200 knows destinations into the sorted distinct knows
      sources, held against numpy.
@@ -161,8 +192,8 @@ Phases (any failure raises, and the script exits non-zero):
      under "shapes"; every record its launches on its path ("launches"),
      on the eager path ("eager_launches"), the serving path
      ("serving_launches"), the chaos path ("chaos_launches"), the
-     analysis path ("analysis_launches") and the distributed path
-     ("distributed_launches").
+     analysis path ("analysis_launches"), the distributed path
+     ("distributed_launches") and the model path ("model_launches").
 
 The last line is {"ok": true, "device": {...}}; the line before it the
 `kernels` JSON record, and before that the card's name and power limit.
@@ -1197,6 +1228,15 @@ def card_line() -> str:
     ).stdout.strip()
 
 
+def clock_line() -> str:
+    """The card's SM and memory clocks (MHz), power draw and temperature
+    now, as nvidia-smi reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True,
+    ).stdout.strip()
+
+
 def spmd_cell(name, q, rels, num_shards: int, want: int, group, device: str, sync) -> dict:
     """One workload at one shard count: cold over new relation objects
     (the constructor, split into its own set-up steps, then the first
@@ -1369,6 +1409,338 @@ def distributed_path(device: str, seed: int, workloads, ref, sync, host_sf: floa
             for path, seen in (("distributed SPMD", spmd_seen),
                                ("distributed SPMD pad-key probe", pad_seen),
                                ("distributed host path", host_seen))}
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: the model path (the LM stack's decode serving)
+# ---------------------------------------------------------------------------
+
+# H100 SXM bf16 tensor-core peak (NVIDIA data sheet, dense)
+BF16_OPS_PER_S = 989e12
+MODEL_TOL = {"reduced": 1e-4, "full": 2e-3}
+GAP = 1e-3  # top-2 logit gap under which an argmax is not held to a tie-break
+
+
+def max_err(a, b) -> float:
+    return float((a.float().cpu() - b.float().cpu()).abs().max())
+
+
+def moved(params, device):
+    """A copy of a model's parameters on `device`."""
+    import copy
+
+    return copy.deepcopy(params).to(device)
+
+
+def reduced_on_card(device: str, seed: int) -> dict:
+    """Every reduced config in fp32: apply_model's logits and 8 decode steps
+    (logits and every cache leaf) on the card against the same parameters
+    on the CPU. Returns arch -> max abs error."""
+    import torch
+
+    from repro_torch.configs import ARCHS, get_arch
+    from repro_torch.models import transformer as tf
+
+    errors = {}
+    for i, arch in enumerate(sorted(ARCHS)):
+        spec = get_arch(arch)
+        cfg = spec.reduced
+        cpu = tf.init_params(cfg, seed=seed + i, device="cpu")
+        card = moved(cpu, device)
+        rng = np.random.default_rng(seed + i)
+        if spec.modality == "text":
+            x = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 8)).astype(np.int32))
+        else:
+            x = torch.from_numpy(rng.standard_normal((2, 8, cfg.d_model)).astype(np.float32))
+        err = max_err(tf.apply_model(card, cfg, x.to(device)), tf.apply_model(cpu, cfg, x))
+        caches = tf.init_cache(cfg, 2, 8, device=device), tf.init_cache(cfg, 2, 8, device="cpu")
+        for t in range(8):
+            got, c_card = tf.decode_step(card, cfg, x[:, t:t + 1].to(device), caches[0], t)
+            want, c_cpu = tf.decode_step(cpu, cfg, x[:, t:t + 1], caches[1], t)
+            err = max(err, max_err(got, want),
+                      *(max_err(a, b) for pa, pb in zip(c_card, c_cpu) for a, b in zip(pa, pb)))
+        if not err <= MODEL_TOL["reduced"]:
+            fail(f"model path: reduced {arch} on the card differs from the CPU by {err}")
+        errors[arch] = err
+    return errors
+
+
+def serve_trace(vocab: int, seed: int, n: int = 8, max_new: int = 16):
+    """n requests, prompts of 8-64 token ids from `seed`."""
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(0, vocab, int(rng.integers(8, 65))).astype(np.int32), max_new)
+            for _ in range(n)]
+
+
+def serve(params, cfg, trace, slots: int = 4, max_len: int = 256, on_emit=None,
+          timed: bool = False):
+    """Serve `trace` through one DecodeServeEngine. Returns (engine, outs,
+    wall s, the host ms of each step that made one decode call)."""
+    import torch
+
+    from repro_torch.serve import DecodeServeEngine, Request
+
+    class CountingEngine(DecodeServeEngine):
+        decode_calls = 0
+
+        def _decode(self):
+            self.decode_calls += 1
+            return super()._decode()
+
+    eng = CountingEngine(params, cfg, slots=slots, max_len=max_len, on_emit=on_emit)
+    reqs = [Request(rid=i, prompt=p, max_new=m) for i, (p, m) in enumerate(trace)]
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steady = []
+    while eng.queue or any(eng.active):
+        calls, t = eng.decode_calls, time.perf_counter()
+        eng.step()  # ends in the argmax read-back: a host clock brackets the device work
+        if timed and eng.decode_calls == calls + 1:
+            steady.append((time.perf_counter() - t) * 1e3)
+    wall = time.perf_counter() - t0
+    if not all(r.done and len(r.out) == r.max_new for r in reqs):
+        fail(f"model path: {cfg.name}: a request was not served to max_new")
+    return eng, [r.out for r in reqs], wall, steady
+
+
+def prefill_check(params, cfg, trace, isolate: bool, cpu_params=None) -> dict:
+    """The engine's tokens and logits against apply_model over each prompt
+    plus the tokens before: its decode logits are the prefill's within
+    MODEL_TOL["full"], and every emitted token is the prefill's argmax
+    wherever the prefill's top-2 gap is at least GAP.
+
+    With `cpu_params` (the same weights on the CPU), the bound is the
+    model's own rounding floor where that is higher: twice the largest
+    difference between the card's and the CPU's fp32 prefill of the same
+    sequences, and the gap twice the bound. With `isolate` each request
+    is served alone by a fresh engine: a recurrent mixer's state is
+    advanced by the steps the engine makes for the other slots (the
+    reference engine's behaviour, kept), so only a lone request is the
+    model's own sequence."""
+    import torch
+
+    from repro_torch.models import transformer as tf
+
+    rows, outs = {}, []
+    for group in ([item] for item in trace) if isolate else [trace]:
+        def on_emit(req, pos, logits, base=len(outs)):
+            rows.setdefault(base + req.rid, []).append((pos, logits))
+
+        outs += serve(params, cfg, group, on_emit=on_emit)[1]
+    device = next(params.parameters()).device
+    fulls, floor = [], 0.0
+    for (prompt, _m), out in zip(trace, outs):
+        seq = torch.from_numpy(np.concatenate([prompt, np.asarray(out, np.int32)]))[None]
+        fulls.append(tf.apply_model(params, cfg, seq.to(device))[0])
+        if cpu_params is not None:
+            floor = max(floor, max_err(fulls[-1], tf.apply_model(cpu_params, cfg, seq)[0]))
+    tol = max(MODEL_TOL["full"], 2 * floor)
+    gap = GAP if cpu_params is None else max(GAP, 2 * tol)
+    checked = skipped = 0
+    err = 0.0
+    for rid, (full, out) in enumerate(zip(fulls, outs)):
+        if len(rows[rid]) != len(out):
+            fail(f"model path: {cfg.name} request {rid}: {len(rows[rid])} rows for "
+                 f"{len(out)} tokens")
+        for (pos, logits), tok in zip(rows[rid], out):
+            want = full[pos]
+            err = max(err, max_err(logits, want))
+            top2 = torch.topk(want, 2).values
+            if float(top2[0] - top2[1]) < gap:
+                skipped += 1
+            elif int(torch.argmax(want)) != tok:
+                fail(f"model path: {cfg.name} request {rid} at {pos}: token {tok} != "
+                     f"prefill argmax {int(torch.argmax(want))}")
+            else:
+                checked += 1
+    if not err <= tol:
+        fail(f"model path: {cfg.name}: decode logits differ from prefill by {err} > {tol}")
+    rec = {"requests": len(trace), "tokens_checked": checked, "tokens_skipped_gap": skipped,
+           "decode_vs_prefill_max_abs_err": err, "tol": tol, "gap": gap, "isolated": isolate}
+    if cpu_params is not None:
+        rec["prefill_card_vs_cpu_max_abs_err"] = floor
+    return rec
+
+
+def step_bytes(eng) -> int:
+    """The bytes one decode step must move: every weight at the dtype the
+    step reads it at (the unembedding's whole table; of an untied
+    embedding table only the slots' rows) and the cache, read once."""
+    cfg, params = eng.cfg, eng.params
+    total = sum(p.numel() * p.element_size() for p in params.parameters())
+    if not cfg.tie_embeddings:
+        table = params["embed"]["table"]
+        total -= table.numel() * table.element_size()
+        total += eng.slots * table.shape[1] * table.element_size()
+    total += sum(leaf.numel() * leaf.element_size() for pos in eng.cache for leaf in pos)
+    return total
+
+
+def step_ops(eng) -> int:
+    """2 x slots x the product weights a step multiplies by (the embedding
+    gather multiplies nothing), the attention over the cache aside."""
+    table = eng.params["embed"]["table"]
+    n = sum(p.numel() for p in eng.params.parameters())
+    if not eng.cfg.tie_embeddings:
+        n -= table.numel()
+    return 2 * eng.slots * n
+
+
+def steady_step(eng, trace, sync) -> dict:
+    """One engine in steady decode: a new batch of requests admitted (one
+    step), then one step's host syncs (sync_count), its device ms and the
+    kernels it launched (torch.profiler, 5 steps), and the host ms of 5
+    more steps without the profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve import Request
+
+    base = 1000
+    for i, (prompt, _m) in enumerate(trace[:eng.slots]):
+        eng.submit(Request(rid=base + i, prompt=prompt, max_new=64))
+    eng.step()
+    syncs = sync_count(eng.step)
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            eng.step()
+        sync()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in events) / 5 / 1e3
+    if device_ms <= 0:
+        fail("model path: torch.profiler recorded no device time for a decode step")
+    kernels = sum(e.count for e in events) / 5
+    times = []
+    for _ in range(5):
+        t = time.perf_counter()
+        eng.step()
+        times.append((time.perf_counter() - t) * 1e3)
+    host_ms = float(np.median(times))
+    if any(r is None for r in eng.active):
+        fail("model path: a slot emptied during the steady-state steps")
+    return {"syncs": syncs, "device_ms": device_ms, "device_ops": kernels, "step_ms": host_ms,
+            "idle_share": 1 - device_ms / host_ms}
+
+
+def bf16_cell(name, params, cfg, seed: int, sync, trace=None) -> dict:
+    """The config's own dtypes: serve the 8-request trace, timed; then one
+    engine in steady state; the step's bound from its bytes and ops."""
+    import torch
+
+    trace = trace or serve_trace(cfg.vocab, seed)
+    torch.cuda.reset_peak_memory_stats()
+    eng, outs, wall, steady = serve(params, cfg, trace, timed=True)
+    tokens = sum(len(o) for o in outs)
+    rec = {"requests": len(trace), "prompt_tokens": int(sum(len(p) for p, _m in trace)),
+           "tokens": tokens, "engine_steps": eng.steps, "decode_calls": eng.decode_calls,
+           "wall_s": wall, "tokens_per_s": tokens / wall,
+           "median_decode_step_ms": float(np.median(steady)), "decode_steps_timed": len(steady)}
+    rec["steady"] = steady_step(eng, trace, sync)
+    rec["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    nbytes, ops = step_bytes(eng), step_ops(eng)
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
+    rec["bound"] = {"bytes": nbytes, "ops": ops, "bound_ms": max(bytes_ms, ops_ms),
+                    "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                    "share_of_step": max(bytes_ms, ops_ms) / rec["median_decode_step_ms"]}
+    print(f"model path: {name} bf16 " + json.dumps(rec), flush=True)
+    return rec, outs
+
+
+def full_model(name: str, seed: int, device: str, **cut):
+    """A config at full width (depth cut where `cut` says), its parameters
+    made on the card from `seed`. Returns (cfg, params, record)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tf
+
+    cfg = dataclasses.replace(get_arch(name).model, **cut)
+    t = time.perf_counter()
+    params = tf.init_params(cfg, seed=seed, device=device)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in params.parameters())
+    rec = {"layers": cfg.num_layers, "d_model": cfg.d_model, "heads": cfg.num_heads,
+           "kv_heads": cfg.num_kv_heads, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+           "params": n, "param_dtype": cfg.param_dtype, "compute_dtype": cfg.compute_dtype,
+           "param_gb": sum(p.numel() * p.element_size() for p in params.parameters()) / 1e9,
+           "init_s": time.perf_counter() - t}
+    return cfg, params, rec
+
+
+def model_path(device: str, seed: int, sync) -> dict:
+    """The model phase (see the module docstring): the ten reduced configs
+    on the card against the CPU; qwen2-1.5b whole (fp32 checks, then the
+    bf16 serve); rwkv6-1.6b whole and mixtral-8x22b at full width with 2 of
+    its 56 layers (bf16 serve, fp32 decode-vs-prefill at 2 requests). Prints
+    the `model:` line."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import transformer as tf
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("model path: TF32 is on for matmuls; the fp32 checks need it off")
+    rec = {"card": card_line(), "torch": torch.__version__}
+    t = time.perf_counter()
+    rec["reduced_max_abs_err"] = reduced_on_card(device, seed)
+    rec["reduced_s"] = time.perf_counter() - t
+
+    # qwen2-1.5b, whole: fp32 first, then the config's own dtypes
+    cfg, params, rec["qwen2-1.5b"] = full_model("qwen2-1.5b", seed, device)
+    q = rec["qwen2-1.5b"]
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    prompt = torch.from_numpy(np.random.default_rng(seed).integers(0, cfg.vocab, (1, 16)))
+    on_card = tf.apply_model(params, f32, prompt.to(device))
+    cpu = moved(params, "cpu")
+    q["fp32_prefill_card_vs_cpu"] = max_err(on_card, tf.apply_model(cpu, f32, prompt))
+    del cpu
+    if not q["fp32_prefill_card_vs_cpu"] <= MODEL_TOL["full"]:
+        fail(f"model path: qwen2-1.5b fp32 prefill card vs CPU {q['fp32_prefill_card_vs_cpu']}")
+    trace = serve_trace(cfg.vocab, seed)
+    q["fp32_serve"] = prefill_check(params, f32, trace, isolate=False)
+    print("model path: qwen2-1.5b fp32 " + json.dumps(q["fp32_serve"]), flush=True)
+    q["bf16"], _outs = bf16_cell("qwen2-1.5b", params, cfg, seed, sync, trace)
+    del params
+
+    # rwkv6-1.6b, whole: the O(1)-state decode path. At full width two
+    # correct fp32 evaluations of its logits (the card's prefill and the
+    # CPU's) differ by more than MODEL_TOL["full"], so its bound is that
+    # floor, measured on the same sequences
+    cfg, params, rec["rwkv6-1.6b"] = full_model("rwkv6-1.6b", seed, device)
+    cpu = moved(params, "cpu")
+    rec["rwkv6-1.6b"]["fp32_serve"] = prefill_check(
+        params, dataclasses.replace(cfg, compute_dtype="float32"),
+        serve_trace(cfg.vocab, seed + 1, n=2), isolate=True, cpu_params=cpu)
+    del cpu
+    print("model path: rwkv6-1.6b fp32 " + json.dumps(rec["rwkv6-1.6b"]["fp32_serve"]),
+          flush=True)
+    rec["rwkv6-1.6b"]["bf16"], _outs = bf16_cell("rwkv6-1.6b", params, cfg, seed, sync)
+    del params
+
+    # mixtral-8x22b at full width, 2 of its 56 layers (the whole is 282 GB)
+    cfg, params, rec["mixtral-8x22b"] = full_model("mixtral-8x22b", seed, device, num_layers=2)
+    m = rec["mixtral-8x22b"]
+    m["cut"] = "num_layers 56 -> 2"
+    # every expert can take every token of a prefill (capacity = tokens), so
+    # prefill drops nothing where decode's per-token capacity of 4 drops nothing
+    f32 = dataclasses.replace(cfg, compute_dtype="float32",
+                              moe=dataclasses.replace(cfg.moe, capacity_factor=4.0))
+    m["fp32_serve"] = prefill_check(params, f32, serve_trace(cfg.vocab, seed + 2, n=2),
+                                    isolate=False)
+    print("model path: mixtral-8x22b fp32 " + json.dumps(m["fp32_serve"]), flush=True)
+    torch.cuda.empty_cache()
+    m["bf16"], _outs = bf16_cell("mixtral-8x22b", params, cfg, seed, sync)
+    del params
+    torch.cuda.empty_cache()
+    print("model: " + json.dumps(rec), flush=True)
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -2135,6 +2507,10 @@ def main(argv=None) -> int:
                                                    ("hash_probe", "csr_expand"),
                                                    distributed_path, device, args.seed,
                                                    workloads, eager_ref, sync)
+    # the LM stack launches none of K1-K5: its counts say so
+    _, model_launches = drive("model path", (), model_path, device, args.seed, sync)
+    if any(model_launches.values()):
+        fail(f"model path: launched a join kernel: {model_launches}")
     k5_args, k5_counts = drive("intersect path", ("intersect",), intersect_path,
                                workloads[1]["K1"], device)
     launches["intersect"], paths["intersect"] = k5_counts["intersect"], "intersect path"
@@ -2147,11 +2523,13 @@ def main(argv=None) -> int:
                                      "batched dispatch": serving_seen, **distributed_seen},
                     eager_seen, paths, k5_shapes, device)
     cold_breakdown(workloads, sync)
+    print(f"clocks before timing: {clock_line()}", flush=True)
     kernels = timing(mods, captured, launches, {"eager_launches": eager_launches,
                                                 "serving_launches": serving_launches,
                                                 "chaos_launches": chaos_launches,
                                                 "analysis_launches": analysis_launches,
-                                                "distributed_launches": distributed_launches},
+                                                "distributed_launches": distributed_launches,
+                                                "model_launches": model_launches},
                      errors, paths, k5_shapes)
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": kernels}))

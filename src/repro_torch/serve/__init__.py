@@ -1,5 +1,9 @@
 """Serving on the port.
 
+* **DecodeServeEngine** (engine.py) serves *model decode*: continuous
+  batching of LLM requests into fixed decode slots, with a paged KV page
+  allocator on the host (paged_kv.py). `ServeEngine` is the same class
+  under the reference's older name.
 * **JoinServeEngine** (join_engine.py) serves *join queries*: concurrent
   tenants' queries are canonicalized into plan templates
   (templates.canonicalize: alias alpha-renaming + constant lifting),
@@ -18,17 +22,23 @@
   one template key, so they share runners.
 """
 from repro_torch.serve.admission import AdmissionController, AdmissionError, QueryQuota
+from repro_torch.serve.engine import DecodeServeEngine, Request, ServeEngine
 from repro_torch.serve.join_engine import JoinRequest, JoinServeEngine
+from repro_torch.serve.paged_kv import PagedAllocator
 from repro_torch.serve.standing import StandingQuery, StandingQueryEngine
 from repro_torch.serve.templates import PlanTemplate, canonicalize
 
 __all__ = [
     "AdmissionController",
     "AdmissionError",
+    "DecodeServeEngine",
     "JoinRequest",
     "JoinServeEngine",
+    "PagedAllocator",
     "PlanTemplate",
     "QueryQuota",
+    "Request",
+    "ServeEngine",
     "StandingQuery",
     "StandingQueryEngine",
     "canonicalize",

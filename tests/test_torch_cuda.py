@@ -460,3 +460,79 @@ def test_spmd_warm_call_syncs_and_launches(cuda, rng):
         assert box == [want] and ctr.retries == retries, "a warm call retries nothing"
     assert syncs[1] == syncs[4] == 1, syncs
     assert launches[4] == tuple(4 * n for n in launches[1]) and launches[1][0] > 0, launches
+
+
+# ---------------------------------------------------------------------------
+# the LM stack (repro_torch.models, serve.DecodeServeEngine): no kernel of
+# its own, but its products and masks must give the CPU's answer on the card
+# ---------------------------------------------------------------------------
+
+
+def _lm_case(arch, seed, device):
+    """The arch's reduced config (MoE capacity 8) and its parameters made on
+    the CPU from `seed`: (cfg, params on the CPU, the same on `device`)."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tf
+
+    cfg = get_arch(arch).reduced
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=8.0))
+    params = tf.init_params(cfg, seed=seed, device="cpu")
+    return cfg, params, copy.deepcopy(params).to(device)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "mixtral-8x22b", "rwkv6-1.6b"])
+def test_reduced_lm_on_card_matches_cpu(cuda, arch):
+    """apply_model's logits and 8 decode steps (logits and every cache
+    leaf) on the card against the CPU, fp32 with TF32 off, atol 1e-4."""
+    from repro_torch.models import transformer as tf
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg, cpu_params, params = _lm_case(arch, 0, cuda)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 8))
+    x, x_cpu = on(cuda, toks), on("cpu", toks)
+    tol = dict(atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(tf.apply_model(params, cfg, x).cpu(),
+                               tf.apply_model(cpu_params, cfg, x_cpu), **tol)
+    cache = tf.init_cache(cfg, 2, 8, device=cuda)
+    cache_cpu = tf.init_cache(cfg, 2, 8, device="cpu")
+    for t in range(8):
+        got, cache = tf.decode_step(params, cfg, x[:, t:t + 1], cache, t)
+        want, cache_cpu = tf.decode_step(cpu_params, cfg, x_cpu[:, t:t + 1], cache_cpu, t)
+        torch.testing.assert_close(got.cpu(), want, **tol)
+        for a, b in zip([l for pos in cache for l in pos], [l for pos in cache_cpu for l in pos]):
+            torch.testing.assert_close(a.cpu(), b, **tol)
+
+
+def test_decode_serve_engine_on_card_matches_cpu(cuda):
+    """The same requests through DecodeServeEngine on the card and on the
+    CPU give the same tokens, steps and allocator state."""
+    from repro_torch.serve import DecodeServeEngine, Request
+
+    cfg, cpu_params, params = _lm_case("mixtral-8x22b", 1, cuda)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in (3, 9, 1, 14, 5, 7)]
+    max_new = [6, 20, 3, 12, 30, 4]
+    engines, gaps = [], []
+
+    def on_emit(req, pos, logits):
+        top2 = torch.topk(logits, 2).values
+        gaps.append(float(top2[0] - top2[1]))
+
+    for p in (params, cpu_params):
+        eng = DecodeServeEngine(p, cfg, slots=3, max_len=24, on_emit=on_emit)
+        reqs = [Request(rid=i, prompt=pr, max_new=m)
+                for i, (pr, m) in enumerate(zip(prompts, max_new))]
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        engines.append((eng, [r.out for r in reqs]))
+    (card, card_out), (cpu, cpu_out) = engines
+    assert card.device.type == "cuda"
+    assert min(gaps) > 1e-3, "exact equality of tokens needs clear top-2 gaps"
+    assert card_out == cpu_out
+    assert card.steps == cpu.steps
+    assert card.pages.owner == cpu.pages.owner and card.pages.free == cpu.pages.free
