@@ -24,7 +24,7 @@ from torch import nn
 class Params(nn.Module):
     """One node of a parameter tree: tensors become nn.Parameters, dicts
     child nodes, and p["name"] reads either. Parameters are made with
-    requires_grad=False: the models here serve; a trainer turns gradients
+    requires_grad=False, as serving wants them; a trainer turns gradients
     on with `requires_grad_()`."""
 
     def __init__(self, tree: dict):
@@ -45,6 +45,15 @@ class Params(nn.Module):
 
     def keys(self):
         return [*self._parameters, *self._modules]
+
+
+def map_tree(fn, node) -> nn.Module:
+    """A tree of `node`'s structure (Params nodes, ModuleLists) whose
+    leaves are fn(leaf), in the same parameter order."""
+    if isinstance(node, nn.ModuleList):
+        return nn.ModuleList(map_tree(fn, child) for child in node)
+    return Params({k: map_tree(fn, node[k]) if isinstance(node[k], nn.Module) else fn(node[k])
+                   for k in node.keys()})
 
 
 def _init_dense(gen: torch.Generator, shape, in_axis_size: int, dtype):

@@ -1,4 +1,4 @@
-"""Mixture-of-Experts with capacity-bounded scatter dispatch (forward).
+"""Mixture-of-Experts with capacity-bounded scatter dispatch.
 
 Top-k routing is a join between the token table and the expert table, and
 the dispatch is the group-by rank of the join engine: rank each sequence's
@@ -51,6 +51,31 @@ def _capacity(tokens: int, cfg: MoEConfig) -> int:
     return max(4, c)
 
 
+class _ExpertMM(torch.autograd.Function):
+    """The expert products, "in": becd,edf->becf and "out": becf,efd->becd,
+    with the reference's gradient dtypes: the forward and the activation
+    gradient in the buffer's (compute) dtype, the weight gradient
+    accumulated in fp32 and then cast to the weight's dtype."""
+
+    @staticmethod
+    def forward(ctx, buf, w, sub: str):
+        ctx.save_for_backward(buf, w)
+        ctx.sub = sub
+        return torch.einsum("becd,edf->becf" if sub == "in" else "becf,efd->becd", buf, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        buf, w = ctx.saved_tensors
+        g = g.to(buf.dtype)
+        if ctx.sub == "in":
+            dbuf = torch.einsum("becf,edf->becd", g, w)
+            dw = torch.einsum("becd,becf->edf", buf.float(), g.float())
+        else:
+            dbuf = torch.einsum("becd,efd->becf", g, w)
+            dw = torch.einsum("becf,becd->efd", buf.float(), g.float())
+        return dbuf, dw.to(w.dtype), None
+
+
 def moe_apply(p, cfg: MoEConfig, x: torch.Tensor):
     """x: (B, S, D). Dispatch groups are the sequences, so capacity is per
     sequence."""
@@ -75,10 +100,10 @@ def moe_apply(p, cfg: MoEConfig, x: torch.Tensor):
                    x[:, tok], accumulate=True)
     buf = buf[:, :e]  # (B, E, cap, D)
 
-    h = torch.einsum("becd,edf->becf", buf, p["wi"].to(x.dtype))
-    g = torch.einsum("becd,edf->becf", buf, p["wg"].to(x.dtype))
+    h = _ExpertMM.apply(buf, p["wi"].to(x.dtype), "in")
+    g = _ExpertMM.apply(buf, p["wg"].to(x.dtype), "in")
     h = F.silu(g) * h if cfg.act == "swiglu" else F.gelu(g, approximate="tanh") * h
-    out = torch.einsum("becf,efd->becd", h, p["wo"].to(x.dtype))  # (B, E, cap, D)
+    out = _ExpertMM.apply(h, p["wo"].to(x.dtype), "out")  # (B, E, cap, D)
 
     gathered = out[bi, torch.where(keep, flat_e, 0), torch.where(keep, pos, 0)]
     gathered = torch.where(keep[..., None], gathered, 0)

@@ -19,9 +19,12 @@ Entry points run on the card unless the caller asks for the CPU
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts, noop_context_fn)
 
 from repro_torch.models import attention, layers, moe, ssm
 from repro_torch.models.layers import Params
@@ -190,17 +193,44 @@ def _embed(params, cfg: ModelConfig, inputs):
     return layers.embed_apply(params["embed"], inputs, cfg.cdtype())
 
 
-@torch.no_grad()
+def _unit_apply(cfg: ModelConfig, unit_params, x, positions):
+    for pos, blk in enumerate(unit_params):
+        x = _block_apply(cfg, pos, blk, x, positions)
+    return x
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The "dots" remat policy, the reference's dots_with_no_batch_dims_saveable:
+    keep the outputs of 2-D products (`x @ W` on (B, S, D) lowers to mm or
+    addmm), recompute everything else, the batched products included."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def apply_model(params, cfg: ModelConfig, inputs, positions=None, last_only: bool = False):
     """inputs: int token ids (B, S) or float embeddings (B, S, D).
-    Returns fp32 logits (B, S, vocab)."""
+    Returns fp32 logits (B, S, vocab).
+
+    Runs with autograd where gradients are on. With `cfg.remat` each
+    pattern unit of len(block_pattern) layers is then checkpointed, as the
+    reference wraps its scanned unit in jax.checkpoint: "none" keeps only
+    the unit's input, "dots" also the 2-D products' outputs."""
     x = _embed(params, cfg, inputs)
     b, s = x.shape[:2]
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
     unit = len(cfg.block_pattern)
-    for i, blk in enumerate(params["blocks"]):
-        x = _block_apply(cfg, i % unit, blk, x, positions)
+    blocks = list(params["blocks"])
+    remat = cfg.remat and torch.is_grad_enabled()
+    context_fn = (functools.partial(create_selective_checkpoint_contexts, _save_dots)
+                  if cfg.remat_policy == "dots" else noop_context_fn)
+    for r in range(0, len(blocks), unit):
+        if remat:
+            x = checkpoint(_unit_apply, cfg, blocks[r:r + unit], x, positions,
+                           use_reentrant=False, context_fn=context_fn)
+        else:
+            x = _unit_apply(cfg, blocks[r:r + unit], x, positions)
     x = _norm_apply(cfg, params["final_norm"], x)
     if last_only:
         # serving prefill: only the final position's logits are needed

@@ -536,3 +536,81 @@ def test_decode_serve_engine_on_card_matches_cpu(cuda):
     assert card_out == cpu_out
     assert card.steps == cpu.steps
     assert card.pages.owner == cpu.pages.owner and card.pages.free == cpu.pages.free
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "mixtral-8x22b", "rwkv6-1.6b"])
+def test_reduced_train_step_on_card_matches_cpu(cuda, arch):
+    """The same parameters and batch on the card and on the CPU, fp32 with
+    TF32 off: the loss within 1e-5 relative, every gradient leaf within
+    1e-4 * max|g| + 1e-6 of the CPU's; after one make_train_step step the
+    parameters within rtol 1e-4 where |g| is above ten times that bound,
+    and within 2 lr everywhere (AdamW's first update is g / (|g| + eps):
+    where g is rounding noise, so is the update, in [-1, 1])."""
+    from repro_torch.train import AdamWConfig, TrainConfig, make_train_step
+    from repro_torch.train.optimizer import init_state
+    from repro_torch.train.trainer import _loss_and_grads
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg, cpu_params, params = _lm_case(arch, 2, cuda)
+    toks = np.random.default_rng(2).integers(0, cfg.vocab, (2, 9))
+    batches = [{"inputs": on(d, toks[:, :-1]), "labels": on(d, toks[:, 1:])}
+               for d in (cuda, "cpu")]
+    grads = []
+    for p, b in zip((params, cpu_params), batches):
+        p.requires_grad_()
+        grads.append(_loss_and_grads(p, cfg, b["inputs"], b["labels"]))
+    (loss, g_card), (want_loss, g_cpu) = grads
+    assert abs(float(loss) - float(want_loss)) <= 1e-5 * abs(float(want_loss))
+    bounds = [1e-4 * float(g.abs().max()) + 1e-6 for g in g_cpu]
+    for a, b, bound in zip(g_card, g_cpu, bounds):
+        assert float((a.cpu() - b).abs().max()) <= bound
+    tcfg = TrainConfig(adamw=AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=10))
+    step = make_train_step(cfg, tcfg)
+    for p, b in zip((params, cpu_params), batches):
+        step(p, init_state(tcfg.adamw, p), b)
+    for a, b, g, bound in zip(params.parameters(), cpu_params.parameters(), g_cpu, bounds):
+        a, b = a.detach().cpu(), b.detach()
+        signal = g.abs() > 10 * bound
+        torch.testing.assert_close(a[signal], b[signal], atol=1e-6, rtol=1e-4)
+        assert float((a - b).abs().max()) <= 2 * tcfg.adamw.lr
+
+
+def test_corpus_selection_on_card_matches_numpy(cuda):
+    """select_corpus_samples on the card (its default device) launches K1
+    and equals the numpy oracle."""
+    from repro_torch.train.data import select_corpus_samples
+
+    n = 200_000
+    rng = np.random.default_rng(0)
+    docs = Relation("Docs", {"doc": np.arange(n), "shard": rng.integers(0, 64, n),
+                             "lang": rng.integers(0, 30, n)})
+    quality = Relation("Quality", {"doc": np.arange(n), "score": rng.integers(0, 100, n)})
+    canonical = np.arange(n)
+    dup = rng.random(n) < 0.2
+    canonical[dup] = rng.integers(0, n, int(dup.sum()))
+    dedup = Relation("Dedup", {"doc": np.arange(n), "canonical": canonical})
+    before = hash_probe.launches
+    got = select_corpus_samples(docs, quality, dedup, 60)
+    assert hash_probe.launches > before
+    want = np.flatnonzero((quality.columns["score"] >= 60) & (canonical == np.arange(n)))
+    np.testing.assert_array_equal(got, want)
+
+
+def test_checkpoint_restores_on_card(cuda, tmp_path):
+    """A card train state saved and restored into a fresh one on the card:
+    every leaf bit for bit, bf16 moments included."""
+    from repro_torch.train import AdamWConfig, TrainConfig, checkpoint
+    from repro_torch.train.trainer import init_train_state
+
+    cfg, _, _ = _lm_case("jamba-1.5-large-398b", 0, cuda)
+    tcfg = TrainConfig(adamw=AdamWConfig(moment_dtype="bfloat16"))
+    params, opt = init_train_state(cfg, tcfg, seed=1, device=cuda)
+    for t in (*opt["m"].parameters(), *opt["v"].parameters()):
+        t.copy_(torch.randn(t.shape, device=cuda))
+    checkpoint.save(str(tmp_path), 3, {"params": params, "opt": opt}, cfg)
+    fresh = init_train_state(cfg, tcfg, seed=2, device=cuda)
+    checkpoint.restore(str(tmp_path), 3, {"params": fresh[0], "opt": fresh[1]}, cfg)
+    for a, b in zip([*params.parameters(), *opt["m"].parameters(), *opt["v"].parameters()],
+                    [*fresh[0].parameters(), *fresh[1]["m"].parameters(),
+                     *fresh[1]["v"].parameters()]):
+        assert b.is_cuda and torch.equal(a, b)

@@ -1,13 +1,15 @@
-"""One rank of the multi-rank spmd_count test (tests/test_torch_distributed.py).
+"""One rank of the multi-rank tests: spmd_count (tests/test_torch_distributed.py)
+and compressed_psum (tests/test_torch_train.py).
 
-Not a test module: the test spawns this function once per rank, so it
+Not a test module: the tests spawn these functions once per rank, so it
 imports only torch and the port. Each rank joins a gloo group over a
-FileStore, runs spmd_count on the CPU over the shared workload, and
-writes what it saw to a JSON file.
+FileStore, runs the port on the CPU over the shared workload, and writes
+what it saw to a JSON file.
 """
 import json
 
 import numpy as np
+import torch
 import torch.distributed as dist
 
 from repro_torch.core import distributed as D
@@ -47,5 +49,30 @@ def rank_main(rank: int, world: int, store_path: str, num_shards: int, seed: int
         records = spmd_records(q, rels, fj, num_shards)
         with open(out_path, "w") as f:
             json.dump({"records": records, "collectives": D.COLLECTIVES}, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def compression_grad(world: int) -> np.ndarray:
+    """The reference's compression workload: row r is rank r's gradient."""
+    return (np.arange(world * 8, dtype=np.float32).reshape(world, 8) / np.float32(7.3))
+
+
+def compression_rank_main(rank: int, world: int, store_path: str, out_path: str) -> None:
+    """Two compressed_psum steps of rank `rank`'s row, the second carrying
+    the first's error state; writes each step's output and error."""
+    from repro_torch.train.compression import compressed_psum, init_error
+
+    store = dist.FileStore(store_path, world)
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=world)
+    try:
+        grad = {"w": torch.from_numpy(compression_grad(world)[rank:rank + 1])}
+        err = init_error(grad)
+        steps = []
+        for _ in range(2):
+            out, err = compressed_psum(grad, err)
+            steps.append({"out": out["w"].tolist(), "err": err["w"].tolist()})
+        with open(out_path, "w") as f:
+            json.dump(steps, f)
     finally:
         dist.destroy_process_group()
