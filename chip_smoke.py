@@ -186,6 +186,24 @@ Phases (any failure raises, and the script exits non-zero):
      Join on the card, equal to the numpy oracle, its largest kernel calls
      recorded for the parity phase. The `train:` line holds it all, beside
      the card's name and power limit.
+  4e. Launch path (counters set to 0 before, read after; K1, K2 and K4
+     must launch): repro_torch.launch, each fake world in a child process
+     (python3 chip_smoke.py --launch-child ...; one default process group
+     a process). dryrun_join on the card at 256 and then 512 shards: rank
+     0's HyperCube count of the triangle and the clover over 65,536 rows a
+     relation from --seed, each count equal to a numpy oracle on the same
+     fragment, overflow 0, two all-reduces a query (CommDebugMode), cold
+     s, warm ms, device ms, peak MiB, launches; the child's launch counts
+     are added to this process's, and its kernels' largest inputs join
+     the parity phase. Beside it on the host, the LM dry-run of
+     qwen2-1.5b train_4k and mixtral-8x22b decode_32k at full width on the
+     single-pod mesh of 256 fake ranks with fake cuda tensors (flops,
+     bytes, collective bytes, memory; the microbatches=8 trace skipped).
+     Then, in this process, make_host_mesh() over the card under an NCCL
+     group of one rank and one qwen2-1.5b full-width train step with
+     DTensor parameters on a (1, 1) mesh placed by param_shardings, its
+     loss and gradient norm against the plain step's (LAUNCH_TOL). The
+     `launch:` lines hold it all, beside the card's name and power limit.
   5. K5's path (counter set to 0 before, read after): ops.intersect_sorted
      of the 1,800,200 knows destinations into the sorted distinct knows
      sources, held against numpy.
@@ -221,8 +239,9 @@ Phases (any failure raises, and the script exits non-zero):
      on the eager path ("eager_launches"), the serving path
      ("serving_launches"), the chaos path ("chaos_launches"), the
      analysis path ("analysis_launches"), the distributed path
-     ("distributed_launches"), the model path ("model_launches") and the
-     train path ("train_launches").
+     ("distributed_launches"), the model path ("model_launches"), the
+     train path ("train_launches") and the launch path
+     ("launch_launches").
 
 The last line is {"ok": true, "device": {...}}; the line before it the
 `kernels` JSON record, and before that the card's name and power limit.
@@ -1438,6 +1457,207 @@ def distributed_path(device: str, seed: int, workloads, ref, sync, host_sf: floa
             for path, seen in (("distributed SPMD", spmd_seen),
                                ("distributed SPMD pad-key probe", pad_seen),
                                ("distributed host path", host_seen))}
+
+
+# ---------------------------------------------------------------------------
+# phase 4e: the launch layer (fake worlds of 256 and 512 ranks)
+# ---------------------------------------------------------------------------
+
+# the LM dry-run cells traced at full width in this phase
+LAUNCH_CELLS = (("qwen2-1.5b", "train_4k"), ("mixtral-8x22b", "decode_32k"))
+# the (1, 1)-mesh DTensor train step against the plain step, both on the
+# card: the vocab-parallel loss takes its log-sum-exp in another order than
+# log_softmax (fp32 rounding of the loss), and the gradient of the logits
+# differs by that rounding before the bf16 backward reads it. Measured on
+# an H100 80GB HBM3 (700 W): the loss equal, the gradient norm 3.4e-4
+# relative
+LAUNCH_TOL = {"loss": 1e-5, "grad_norm": 1e-3}
+
+
+def join_oracle(query: str, cols, dom: int) -> int:
+    """Bag count of the "triangle" R(x,y) S(y,z) T(z,x) (trace of R S T
+    over sparse adjacency counts) or the "clover" R(x,a) S(x,b) T(x,c)
+    (the sum over x of the three degrees' product) on numpy columns."""
+    import scipy.sparse as sp
+
+    if query == "triangle":
+        def m(a, b):
+            return sp.csr_matrix((np.ones(len(a), np.int64), (a, b)), shape=(dom, dom))
+        r, s_, t = m(cols["R"]["x"], cols["R"]["y"]), m(cols["S"]["y"], cols["S"]["z"]), \
+            m(cols["T"]["z"], cols["T"]["x"])
+        return int((r @ s_).multiply(t.T).sum())
+    d = [np.bincount(cols[a]["x"], minlength=dom).astype(np.int64) for a in "RST"]
+    return int((d[0] * d[1] * d[2]).sum())
+
+
+def launch_child(what: str, out: str, seed: int) -> int:
+    """Body of `chip_smoke.py --launch-child WHAT OUT`: one fake world in
+    this process. "join": dryrun_join at 256 and then 512 shards on the
+    card, with the kernels' launch counts set to 0 before and read after,
+    their largest inputs recorded; "ARCH:SHAPE": the LM dry-run of that
+    cell at full width on the single-pod mesh, fake cuda tensors (its
+    microbatches=8 trace skipped). Writes its result to OUT."""
+    import torch
+
+    if what == "join":
+        from repro_torch.launch import dryrun_join
+
+        mods = kernel_modules()
+        for m in mods.values():
+            m.launches = 0
+        with capture_largest() as seen:
+            recs = (dryrun_join.lower_join(False, seed=seed)
+                    + dryrun_join.lower_join(True, seed=seed))
+        torch.save({"recs": recs, "launches": {name: m.launches for name, m in mods.items()},
+                    "seen": {name: tuple(a.cpu() if isinstance(a, torch.Tensor) else a
+                                         for a in args)
+                             for name, (_size, args) in seen.items()}}, out)
+        return 0
+    from repro_torch.launch import dryrun
+
+    arch, shape = what.split(":")
+    rec = dryrun.lower_cell(arch, shape, False, "cuda", mb8=False)
+    Path(out).write_text(json.dumps(rec))
+    return 0 if rec["status"] == "ok" else 1
+
+
+def dtensor_step(device: str, seed: int, store_path: Path) -> dict:
+    """make_host_mesh() over the one card under an NCCL group of one rank,
+    then one qwen2-1.5b full-width train step (bf16 compute, fp32 AdamW
+    moments, B = 2, S = 512) with DTensor parameters on a (1, 1) ("data",
+    "model") mesh placed by param_shardings, against the plain step from
+    the same seed on the same batch."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.trainer import TrainConfig, init_train_state, make_train_step
+
+    cfg, tcfg = get_arch("qwen2-1.5b").model, TrainConfig()
+    rng = np.random.default_rng(seed)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (2, 512)).astype(np.int32)).to(device)
+             for k in ("inputs", "labels")}
+    params, state = init_train_state(cfg, tcfg, seed=seed, device=device)
+    _, _, want = make_train_step(cfg, tcfg)(params, state, batch)
+    plain = {"loss": float(want["loss"]), "grad_norm": float(want["grad_norm"])}
+    del params, state, want
+    torch.cuda.empty_cache()
+    store_path.unlink(missing_ok=True)
+    dist.init_process_group("nccl", store=dist.FileStore(str(store_path), 1), rank=0,
+                            world_size=1)
+    try:
+        host = make_host_mesh()
+        if host.size() != torch.cuda.device_count() or host.mesh_dim_names != ("data",):
+            fail(f"launch: make_host_mesh gave {host} over {torch.cuda.device_count()} card(s)")
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        params = dryrun.distribute_model(init_params(cfg, seed=seed, device=device), mesh)
+        params.requires_grad_()
+        state = opt.init_state(tcfg.adamw, params)
+        dbatch = {k: dryrun.place_batch(v, mesh) for k, v in batch.items()}
+        t = time.perf_counter()
+        with implicit_replication():
+            _, _, got = make_train_step(cfg, tcfg)(params, state, dbatch)
+        sharded = {k: float(got[k].full_tensor() if hasattr(got[k], "full_tensor") else got[k])
+                   for k in ("loss", "grad_norm")}
+        step_s = time.perf_counter() - t
+    finally:
+        dist.destroy_process_group()
+    rel = {k: abs(sharded[k] - plain[k]) / abs(plain[k]) for k in plain}
+    for k, tol in LAUNCH_TOL.items():
+        if not np.isfinite(sharded[k]) or rel[k] > tol:
+            fail(f"launch: the DTensor step's {k} {sharded[k]} differs from the plain "
+                 f"step's {plain[k]} by {rel[k]:.3e} (tolerance {tol})")
+    return {"plain": plain, "dtensor": sharded, "rel_diff": rel, "tol": LAUNCH_TOL,
+            "bitwise": all(sharded[k] == plain[k] for k in plain), "dtensor_step_s": step_s,
+            "host_mesh": {"names": list(host.mesh_dim_names), "size": host.size()}}
+
+
+def launch_path(device: str, seed: int) -> dict:
+    """The launch phase (see the module docstring). Each fake world runs
+    in a child process (one default process group a process): the join
+    dry-run alone on the card first, the two LM cells on the host beside
+    it; then the (1, 1)-mesh DTensor step here. The children's kernel
+    launch counts are added to this process's counters, so the phase's
+    counts hold them. Prints the `launch:` lines, the last with all of
+    it, and returns the kernels' largest inputs on the join dry-run. No
+    child outlives the phase."""
+    import torch
+
+    from repro_torch.launch import dryrun_join
+    from repro_torch.relational.schema import clover_query, triangle_query
+
+    out_dir = ROOT / "build" / "launch_phase"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    children = []
+
+    def start(what):
+        name = what.replace(":", "_")
+        log = open(out_dir / f"{name}.log", "w")
+        proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--seed",
+                                 str(seed), "--launch-child", what, str(out_dir / f"{name}.out")],
+                                stdout=log, stderr=subprocess.STDOUT, cwd=ROOT)
+        children.append((proc, log))
+        return what, proc
+
+    def finish(child, timeout) -> Path:
+        what, proc = child
+        name = what.replace(":", "_")
+        try:
+            rc = proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            rc = "a timeout"
+        if rc != 0:
+            tail = (out_dir / f"{name}.log").read_text()[-3000:]
+            fail(f"launch: child {what} exited with {rc}:\n{tail}")
+        return out_dir / f"{name}.out"
+
+    t = time.perf_counter()
+    try:
+        cells = [start(f"{a}:{s}") for a, s in LAUNCH_CELLS]
+        joined = torch.load(finish(start("join"), 600), weights_only=False)
+        rec = {"card": card_line(), "join": [], "lm": [], "join_s": time.perf_counter() - t}
+        mods = kernel_modules()
+        for name, n in joined["launches"].items():
+            mods[name].launches += n
+        queries = {str(q): (name, q) for name, q in (("triangle", triangle_query()),
+                                                      ("clover", clover_query()))}
+        for r in joined["recs"]:
+            name, q = queries[r["query"]]
+            want = join_oracle(name, dryrun_join.fragment(q, r["rows_per_shard"], seed),
+                               dryrun_join.DOMAIN)
+            if r["count"] != want or r["overflow"] != 0:
+                fail(f"launch: join dry-run {r['query']} at {r['shards']} shards counted "
+                     f"{r['count']} (overflow {r['overflow']}), numpy oracle {want}")
+            if r["collectives"] != {"c10d.allreduce_": 2}:
+                fail(f"launch: join dry-run {r['query']}: collectives {r['collectives']}, "
+                     "not two all-reduces")
+            rec["join"].append({**r, "oracle": want})
+            print("launch: join " + json.dumps(rec["join"][-1]), flush=True)
+        rec["dtensor_step"] = dtensor_step(device, seed, ROOT / "build" / "nccl_store")
+        print("launch: dtensor step " + json.dumps(rec["dtensor_step"]), flush=True)
+        keep = ("arch", "shape", "status", "mesh", "seconds_to_compile", "flops",
+                "bytes_accessed", "collective_bytes", "memory", "params_total")
+        for child in cells:
+            cell = json.loads(finish(child, 900).read_text())
+            rec["lm"].append({k: cell[k] for k in keep})
+            print("launch: lm " + json.dumps(rec["lm"][-1]), flush=True)
+    finally:
+        for proc, log in children:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    rec["took_s"] = time.perf_counter() - t
+    print("launch: " + json.dumps(rec), flush=True)
+    return {"launch path": {name: tuple(a.to(device) if isinstance(a, torch.Tensor) else a
+                                        for a in args)
+                            for name, args in joined["seen"].items()}}
 
 
 # ---------------------------------------------------------------------------
@@ -2820,6 +3040,8 @@ def cold_breakdown(workloads, sync):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--launch-child", nargs=2, metavar=("WHAT", "OUT"), default=None,
+                    help=argparse.SUPPRESS)  # the launch phase's fake worlds
     args = ap.parse_args(argv)
 
     import torch
@@ -2828,6 +3050,8 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device visible; this script runs only on a GPU",
               file=sys.stderr)
         return 2
+    if args.launch_child:
+        return launch_child(*args.launch_child, args.seed)
     from repro_torch.kernels import _build
 
     device = "cuda"
@@ -2886,6 +3110,11 @@ def main(argv=None) -> int:
     (_, train_seen), train_launches = drive("train path", ("hash_probe",), train_path, device,
                                             args.seed, sync, qwen2)
     del qwen2
+    # the launch layer: fake worlds in child processes, K1, K2 and K4 on the
+    # join dry-run's trie builds, probes and expansions
+    launch_seen, launch_launches = drive("launch path", ("hash_probe", "csr_expand",
+                                                         "radix_rank"),
+                                         launch_path, device, args.seed)
     k5_args, k5_counts = drive("intersect path", ("intersect",), intersect_path,
                                workloads[1]["K1"], device)
     launches["intersect"], paths["intersect"] = k5_counts["intersect"], "intersect path"
@@ -2896,7 +3125,7 @@ def main(argv=None) -> int:
     errors = parity(mods, captured, {"standing-q1 ingest": q1_seen,
                                      "stage replay": replay_seen,
                                      "batched dispatch": serving_seen, **distributed_seen,
-                                     "train path": train_seen},
+                                     "train path": train_seen, **launch_seen},
                     eager_seen, paths, k5_shapes, device)
     cold_breakdown(workloads, sync)
     print(f"clocks before timing: {clock_line()}", flush=True)
@@ -2906,7 +3135,8 @@ def main(argv=None) -> int:
                                                 "analysis_launches": analysis_launches,
                                                 "distributed_launches": distributed_launches,
                                                 "model_launches": model_launches,
-                                                "train_launches": train_launches},
+                                                "train_launches": train_launches,
+                                                "launch_launches": launch_launches},
                      errors, paths, k5_shapes)
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": kernels}))

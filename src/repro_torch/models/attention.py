@@ -13,8 +13,9 @@ import dataclasses
 import math
 
 import torch
+from torch.distributed.tensor import DTensor
 
-from repro_torch.models import layers
+from repro_torch.models import layers, tp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,6 +101,8 @@ def attn_apply(p, cfg: AttnConfig, x, positions, q_chunk: int = 0):
     With q_chunk > 0 and seq divisible, queries are processed in chunks of
     q_chunk rows: peak score memory drops from O(S^2) to O(q_chunk * S)
     per head, which sets the peak memory of a long prefill."""
+    if isinstance(x, DTensor):
+        return tp.attn_apply(attn_apply, p, cfg, x, positions, q_chunk)
     q, k, v = _qkv(p, cfg, x, positions)
     b, s = x.shape[:2]
     j = torch.arange(s, device=x.device)[None, :]
@@ -125,6 +128,8 @@ def attn_decode(p, cfg: AttnConfig, x, cache_k, cache_v, cur_len):
 
     With a sliding window the cache is a rotating buffer of window size W:
     the new token overwrites slot cur_len % W."""
+    if isinstance(x, DTensor):
+        return tp.attn_decode(attn_decode, p, cfg, x, cache_k, cache_v, cur_len)
     b = x.shape[0]
     t = cache_k.shape[1]
     if isinstance(cur_len, int):

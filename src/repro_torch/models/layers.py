@@ -19,6 +19,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 
 class Params(nn.Module):
@@ -138,6 +139,10 @@ def mlp_init(gen: torch.Generator, cfg: MLPConfig, dtype=torch.float32):
 
 
 def mlp_apply(p, x, act: str = "swiglu"):
+    if isinstance(x, DTensor):
+        from repro_torch.models import tp
+
+        return tp.mlp_apply(mlp_apply, p, x, act)
     h = x @ p["wi"].to(x.dtype)
     if act == "swiglu":
         h = F.silu(x @ p["wg"].to(x.dtype)) * h
@@ -158,11 +163,46 @@ def embed_init(gen: torch.Generator, vocab: int, d_model: int, dtype=torch.float
 
 
 def embed_apply(p, tokens: torch.Tensor, compute_dtype):
-    # gather, then cast: the same values as casting the whole table first
-    return p["table"][tokens].to(compute_dtype)
+    # gather, then cast: the same values as casting the whole table first.
+    # F.embedding reads the same rows as p["table"][tokens].
+    if isinstance(p["table"], DTensor):
+        from repro_torch.models import tp
+
+        return tp.embed(p["table"], tokens).to(compute_dtype)
+    return F.embedding(tokens, p["table"]).to(compute_dtype)
+
+
+# -- activation sharding constraints (set by the launcher; no-ops unless the
+# activation is a DTensor) ---------------------------------------------------
+# Sharding propagation alone re-replicates some large activations (notably
+# the logits); the launcher pins the ones that matter here, as (mesh,
+# placements) pairs.
+_CONSTRAINTS: dict[str, tuple] = {}
+
+
+def set_constraint(name: str, sharding: tuple) -> None:
+    """sharding: (DeviceMesh, placements), one placement per mesh dim."""
+    _CONSTRAINTS[name] = sharding
+
+
+def clear_constraints() -> None:
+    _CONSTRAINTS.clear()
+
+
+def constrain(x: torch.Tensor, name: str) -> torch.Tensor:
+    """x redistributed to the constraint set under `name`; x itself when
+    none is set or x is a plain tensor."""
+    s = _CONSTRAINTS.get(name)
+    if s is None or not isinstance(x, DTensor):
+        return x
+    return x.redistribute(*s)
 
 
 def unembed_apply(p, x, tied: bool):
     table = p["table"] if tied else p["out"]
-    # logits in fp32, (..., vocab)
-    return x.float() @ table.float().T
+    if isinstance(table, DTensor):
+        from repro_torch.models import tp
+
+        return constrain(tp.unembed(x, table), "logits")
+    # logits in fp32, (..., vocab), kept vocab-sharded
+    return constrain(x.float() @ table.float().T, "logits")

@@ -16,8 +16,9 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
-from repro_torch.models import layers
+from repro_torch.models import layers, tp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,9 +77,13 @@ class _ExpertMM(torch.autograd.Function):
         return dbuf, dw.to(w.dtype), None
 
 
-def moe_apply(p, cfg: MoEConfig, x: torch.Tensor):
+def moe_apply(p, cfg: MoEConfig, x: torch.Tensor, experts: tuple[int, int] | None = None):
     """x: (B, S, D). Dispatch groups are the sequences, so capacity is per
-    sequence."""
+    sequence. `experts` = (first, count): p holds only those experts'
+    weights, and the result is their share of the combine (an expert-
+    parallel shard's)."""
+    if isinstance(x, DTensor):
+        return tp.moe_apply(moe_apply, p, cfg, x)
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.top_k
     cap = _capacity(s, cfg)
@@ -98,15 +103,17 @@ def moe_apply(p, cfg: MoEConfig, x: torch.Tensor):
     buf = torch.zeros((b, e + 1, cap, d), dtype=x.dtype, device=dev)
     buf.index_put_((bi, torch.where(keep, flat_e, e), torch.where(keep, pos, 0)),
                    x[:, tok], accumulate=True)
-    buf = buf[:, :e]  # (B, E, cap, D)
+    first, count = experts or (0, e)
+    buf = buf[:, first:first + count]  # (B, E, cap, D)
 
     h = _ExpertMM.apply(buf, p["wi"].to(x.dtype), "in")
     g = _ExpertMM.apply(buf, p["wg"].to(x.dtype), "in")
     h = F.silu(g) * h if cfg.act == "swiglu" else F.gelu(g, approximate="tanh") * h
     out = _ExpertMM.apply(h, p["wo"].to(x.dtype), "out")  # (B, E, cap, D)
 
-    gathered = out[bi, torch.where(keep, flat_e, 0), torch.where(keep, pos, 0)]
-    gathered = torch.where(keep[..., None], gathered, 0)
+    mine = keep if experts is None else keep & (flat_e >= first) & (flat_e < first + count)
+    gathered = out[bi, torch.where(mine, flat_e - first, 0), torch.where(mine, pos, 0)]
+    gathered = torch.where(mine[..., None], gathered, 0)
     contrib = (gathered * topv.reshape(b, s * k, 1).to(x.dtype)).reshape(b, s, k, d)
     y = torch.zeros((b, s, d), dtype=x.dtype, device=dev)
     for j in range(k):  # each token's k contributions, added in the reference's order

@@ -13,13 +13,15 @@ Both carry O(1) per-step state, so decode is sub-quadratic in context:
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
-from repro_torch.models import layers
+from repro_torch.models import layers, tp
 
 
 # ---------------------------------------------------------------------------
@@ -87,54 +89,81 @@ def _mamba_scan(da, dbx, cfg: MambaConfig):
     return torch.cat(hs, dim=1)
 
 
-def _dt(p, cfg: MambaConfig, xi):
-    """x_proj of the conv output, split into (softplus'd fp32 dt, B, C)."""
-    dbc = xi @ p["x_proj"].to(xi.dtype)
+def _dt(p, cfg: MambaConfig, dbc):
+    """x_proj's output split into (softplus'd fp32 dt, B, C)."""
     dt, bmat, cmat = torch.split(dbc, [cfg.rank, cfg.d_state, cfg.d_state], dim=-1)
-    dt = F.softplus(dt @ p["dt_proj"].to(xi.dtype) + p["dt_bias"].to(xi.dtype)).float()
+    dt = F.softplus(dt @ p["dt_proj"].to(dbc.dtype) + p["dt_bias"].to(dbc.dtype)).float()
     return dt, bmat, cmat
 
 
 def mamba_apply(p, cfg: MambaConfig, x):
     """x: (B, S, D) -> (B, S, D)."""
+    if isinstance(x, DTensor):
+        return tp.mamba_apply(_mamba_in, _mamba_out, p, cfg, x)
+    xi, z, dbc = _mamba_in(p, cfg, x)
+    return _mamba_out(p, cfg, xi, z, dbc)
+
+
+def _mamba_in(p, cfg: MambaConfig, x):
+    """in_proj, the causal depthwise conv (window w) and x_proj: (xi, z,
+    dbc), xi and z (B, S, di). Each d_inner channel is its own up to
+    x_proj, which sums over them."""
     s = x.shape[1]
     xi, z = (x @ p["in_proj"].to(x.dtype)).chunk(2, dim=-1)  # (B, S, di)
-    # causal depthwise conv, window w
     w = cfg.conv_width
     pad = F.pad(xi, (0, 0, w - 1, 0))
     conv = pad[:, 0:s] * p["conv"][0].to(x.dtype)
     for i in range(1, w):
         conv = conv + pad[:, i:i + s] * p["conv"][i].to(x.dtype)
     xi = F.silu(conv + p["conv_b"].to(x.dtype))
-    dt, bmat, cmat = _dt(p, cfg, xi)
+    return xi, z, xi @ p["x_proj"].to(xi.dtype)
+
+
+def _mamba_out(p, cfg: MambaConfig, xi, z, dbc):
+    """The selective scan over xi's channels and out_proj, which sums over
+    them."""
+    dt, bmat, cmat = _dt(p, cfg, dbc)
     a = -torch.exp(p["A_log"])  # (di, N)
     da = torch.exp(dt[..., None] * a)  # (B, S, di, N)
     dbx = (dt * xi.float())[..., None] * bmat.float()[..., None, :]
-    h = _mamba_scan(da.float(), dbx, cfg)
+    h = SCANS["mamba"](da.float(), dbx, cfg)
     y = torch.einsum("bsin,bsn->bsi", h, cmat.float())
-    y = (y + p["D"] * xi.float()).to(x.dtype)
+    y = (y + p["D"] * xi.float()).to(xi.dtype)
     y = y * F.silu(z)
-    return y @ p["out_proj"].to(x.dtype)
+    return y @ p["out_proj"].to(xi.dtype)
 
 
 def mamba_decode(p, cfg: MambaConfig, x, conv_buf, h):
     """One-step decode. x (B, 1, D); conv_buf (B, w-1, di); h (B, di, N).
     Returns (y, conv_buf, h), the last two new tensors."""
+    if isinstance(x, DTensor):
+        return tp.mamba_decode(_mamba_decode_in, _mamba_decode_out, p, cfg, x, conv_buf, h)
+    xi1, z, dbc, window = _mamba_decode_in(p, cfg, x, conv_buf)
+    out, h = _mamba_decode_out(p, cfg, xi1, z, dbc, h)
+    return out, window[:, 1:], h
+
+
+def _mamba_decode_in(p, cfg: MambaConfig, x, conv_buf):
+    """(xi (B, 1, di), z, dbc, the conv window (B, w, di))."""
     xi, z = (x @ p["in_proj"].to(x.dtype)).chunk(2, dim=-1)
     window = torch.cat([conv_buf, xi], dim=1)  # (B, w, di)
     conv = torch.einsum("bwi,wi->bi", window, p["conv"].to(x.dtype)) + p["conv_b"].to(x.dtype)
     xi1 = F.silu(conv)[:, None]  # (B, 1, di)
-    dt, bmat, cmat = _dt(p, cfg, xi1)
+    return xi1, z, xi1 @ p["x_proj"].to(xi1.dtype), window
+
+
+def _mamba_decode_out(p, cfg: MambaConfig, xi1, z, dbc, h):
+    """(out (B, 1, D), the new h)."""
+    dt, bmat, cmat = _dt(p, cfg, dbc)
     dt = dt[:, 0]
     a = -torch.exp(p["A_log"])
     da = torch.exp(dt[..., None] * a)  # (B, di, N)
     dbx = (dt * xi1[:, 0].float())[..., None] * bmat.float()[:, 0][:, None, :]
     h = da * h + dbx
     y = torch.einsum("bin,bn->bi", h, cmat.float()[:, 0])
-    y = (y + p["D"] * xi1[:, 0].float()).to(x.dtype)
+    y = (y + p["D"] * xi1[:, 0].float()).to(xi1.dtype)
     y = y * F.silu(z[:, 0])
-    out = (y @ p["out_proj"].to(x.dtype))[:, None]
-    return out, window[:, 1:], h
+    return (y @ p["out_proj"].to(xi1.dtype))[:, None], h
 
 
 # ---------------------------------------------------------------------------
@@ -196,30 +225,40 @@ def _wkv_step(state, r, k, v, w, u):
 
 
 def _rwkv6_out(p, x, out, g):
-    b, s, d = x.shape
+    b, s, h, hd = out.shape
     out = layers.layernorm(p["ln_x"], out.to(x.dtype))
-    out = (out.reshape(b, s, d) * g.reshape(b, s, d)).to(x.dtype)
+    out = (out.reshape(b, s, h * hd) * g.reshape(b, s, h * hd)).to(x.dtype)
     return out @ p["wo"].to(x.dtype)
 
 
 def rwkv6_apply(p, cfg: RWKV6Config, x):
     """x: (B, S, D) -> (B, S, D). Sequential loop over time."""
-    b, s, _ = x.shape
+    if isinstance(x, DTensor):
+        return tp.rwkv6_apply(rwkv6_apply, p, cfg, x)
+    b = x.shape[0]
     x_prev = F.pad(x, (0, 0, 1, 0))[:, :-1]
     r, k, v, w, g = _rwkv6_proj(p, cfg, x, x_prev)
     r, k, v, w = r.float(), k.float(), v.float(), w.float()
     hd = cfg.head_dim
     state = torch.zeros((b, cfg.num_heads, hd, hd), dtype=torch.float32, device=x.device)
+    return _rwkv6_out(p, x, SCANS["wkv"](state, r, k, v, w, p["u"]), g)
+
+
+def _wkv_scan(state, r, k, v, w, u):
+    """The recurrence over time from `state`: r, k, v, w (B, S, H, hd) ->
+    out (B, S, H, hd)."""
     outs = []
-    for t in range(s):
-        state, o = _wkv_step(state, r[:, t], k[:, t], v[:, t], w[:, t], p["u"])
+    for t in range(r.shape[1]):
+        state, o = _wkv_step(state, r[:, t], k[:, t], v[:, t], w[:, t], u)
         outs.append(o)
-    return _rwkv6_out(p, x, torch.stack(outs, dim=1), g)  # (B, S, H, hd) in
+    return torch.stack(outs, dim=1)
 
 
 def rwkv6_decode(p, cfg: RWKV6Config, x, x_prev, state):
     """One-step decode. x (B, 1, D); x_prev (B, 1, D); state (B,H,hd,hd).
     Returns (out, new_x_prev, new_state)."""
+    if isinstance(x, DTensor):
+        return tp.rwkv6_decode(rwkv6_decode, p, cfg, x, x_prev, state)
     r, k, v, w, g = _rwkv6_proj(p, cfg, x, x_prev)
     state, out = _wkv_step(state, r[:, 0].float(), k[:, 0].float(), v[:, 0].float(),
                            w[:, 0].float(), p["u"])
@@ -236,6 +275,8 @@ def rwkv6_ffn_init(gen: torch.Generator, d_model: int, d_ff: int, dtype=torch.fl
 
 
 def rwkv6_ffn(p, x, x_prev):
+    if isinstance(x, DTensor):
+        return tp.rwkv6_ffn(rwkv6_ffn, p, x, x_prev)
     mu = p["mu"].to(x.dtype)
     xk = x + mu[0] * (x_prev - x)
     xr = x + mu[1] * (x_prev - x)
@@ -243,3 +284,27 @@ def rwkv6_ffn(p, x, x_prev):
     kv = k @ p["wv"].to(x.dtype)
     r = torch.sigmoid(xr @ p["wr"].to(x.dtype))
     return r * kv
+
+
+# ---------------------------------------------------------------------------
+# the two loops, as a hook
+# ---------------------------------------------------------------------------
+# mamba_apply and rwkv6_apply look their loop up here at each call. A tool
+# that prices the model without running it (launch/dryrun.py) traces one
+# iteration and counts it for all, through `scans`; nothing else swaps
+# them.
+SCANS = {"mamba": _mamba_scan, "wkv": _wkv_scan}
+
+
+@contextlib.contextmanager
+def scans(*, mamba=None, wkv=None):
+    """Run with the loops replaced where given: `mamba(da, dbx, cfg) -> h`
+    as `_mamba_scan`, `wkv(state, r, k, v, w, u) -> out` as `_wkv_scan`.
+    Restored on exit."""
+    old = dict(SCANS)
+    SCANS.update({k: f for k, f in (("mamba", mamba), ("wkv", wkv)) if f is not None})
+    try:
+        yield
+    finally:
+        SCANS.clear()
+        SCANS.update(old)

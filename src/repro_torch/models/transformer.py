@@ -23,6 +23,7 @@ import functools
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts, noop_context_fn)
 
@@ -178,13 +179,20 @@ def _block_apply(cfg: ModelConfig, pos: int, p, x, positions):
     x = x + h
     h = _norm_apply(cfg, p["ln2"], x)
     if kind == "rwkv":
-        h_prev = torch.nn.functional.pad(h, (0, 0, 1, 0))[:, :-1]
+        h_prev = _shift(h)
         h = ssm.rwkv6_ffn(p["ffn"], h, h_prev)
     elif cfg.is_moe_layer(pos):
         h = moe.moe_apply(p["ffn"], cfg.moe, h)
     else:
         h = layers.mlp_apply(p["ffn"], h, cfg.act)
     return x + h
+
+
+def _shift(h):
+    """h shifted right by one position along dim 1, zeros first."""
+    if isinstance(h, DTensor):  # some torch releases have no DTensor rule for pad
+        return torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], dim=1)
+    return torch.nn.functional.pad(h, (0, 0, 1, 0))[:, :-1]
 
 
 def _embed(params, cfg: ModelConfig, inputs):
@@ -194,6 +202,7 @@ def _embed(params, cfg: ModelConfig, inputs):
 
 
 def _unit_apply(cfg: ModelConfig, unit_params, x, positions):
+    x = layers.constrain(x, "act")
     for pos, blk in enumerate(unit_params):
         x = _block_apply(cfg, pos, blk, x, positions)
     return x
@@ -283,6 +292,8 @@ def decode_step(params, cfg: ModelConfig, token, cache, cur_len):
     for i, p in enumerate(params["blocks"]):
         r, pos = divmod(i, unit)
         kind = cfg.block_pattern[pos]
+        if pos == 0:
+            x = layers.constrain(x, "act_dec")
         c = [leaf[r] for leaf in cache[pos]]
         h = _norm_apply(cfg, p["ln1"], x)
         if kind == "attn":

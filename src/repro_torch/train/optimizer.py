@@ -55,7 +55,7 @@ def init_state(cfg: AdamWConfig, params: nn.Module) -> dict:
     device = next(params.parameters()).device
 
     def zeros(p):
-        return torch.zeros(p.shape, dtype=dt, device=p.device)
+        return torch.zeros_like(p, dtype=dt)  # a DTensor's zeros keep its placements
 
     return {"step": torch.zeros((), dtype=torch.int32, device=device),
             "m": map_tree(zeros, params), "v": map_tree(zeros, params)}

@@ -7,7 +7,9 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from repro_torch.models import tp
 from repro_torch.models.transformer import ModelConfig, apply_model, init_params
 from repro_torch.train import optimizer as opt
 
@@ -20,6 +22,8 @@ class TrainConfig:
 
 def xent_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean token cross-entropy in fp32. labels -100 are masked."""
+    if isinstance(logits, DTensor):
+        return tp.xent_loss(logits, labels)
     mask = labels >= 0
     labels_safe = torch.where(mask, labels, 0).long()
     logp = torch.log_softmax(logits.float(), dim=-1)
@@ -55,7 +59,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
                 raise ValueError(f"batch {b} is not divisible into {mb} microbatches")
             # the raw microbatch grads summed in fp32, then divided by mb,
             # as the reference's scan over microbatches does
-            grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            grads = [torch.zeros_like(p, dtype=torch.float32)
                      for p in params.parameters()]
             loss = torch.zeros((), dtype=torch.float32, device=grads[0].device)
             for i in range(mb):
