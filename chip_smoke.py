@@ -204,6 +204,28 @@ Phases (any failure raises, and the script exits non-zero):
      DTensor parameters on a (1, 1) mesh placed by param_shardings, its
      loss and gradient norm against the plain step's (LAUNCH_TOL). The
      `launch:` lines hold it all, beside the card's name and power limit.
+  4f. Examples path (counters set to 0 before each example, read after
+     it; K1, K2 and K4 must launch during the quickstart): each
+     examples/torch_*.py main() in process with --device cuda, at the
+     reference examples' own sizes and seeds. torch_quickstart: the
+     triangle (5,000 rows a relation over 100 values) through free_join,
+     binary_join, generic_join and compiled_free_join cold and 3 warm,
+     each count equal to triangle_oracle; the clover at n = 5,000 equal to
+     its one tuple; the bushy 4-chain, optimize_level 0 and 2 and
+     verify=True equal to a numpy chain count; JoinServeEngine(slots = 4)
+     serving 4 tenants' filtered triangles in 1 dispatch, each equal to
+     the oracle's rows with that x; the ladder under one injected
+     executor-build failure (absorbed once, both answers exact); a
+     StandingQueryEngine across 3 ingests of 256 rows and a 64-row delete,
+     every count equal to the oracle on the live rows, no trie built after
+     registration. torch_analytics_pipeline: select_corpus_samples over
+     200,000 documents equal to the numpy filter, the triangle count over
+     a 60,000-edge knows on 8 HyperCube shares equal to triangle_oracle.
+     torch_serve_lm: 24 requests of 32 new tokens, all done, every KV page
+     free at the end. torch_train_lm: 150 steps with --resume-demo, the
+     restore bit for bit, "LEARNED". The `examples:` line holds each
+     example's seconds, checked counts and launches per kernel; the join
+     examples' largest kernel inputs join the parity phase.
   5. K5's path (counter set to 0 before, read after): ops.intersect_sorted
      of the 1,800,200 knows destinations into the sorted distinct knows
      sources, held against numpy.
@@ -213,8 +235,9 @@ Phases (any failure raises, and the script exits non-zero):
      delta sorts and probes of the merged 2,097,152-row tables, the
      stage replay's registration and first batch, one batched dispatch
      of each serving template, one eager free_join(agg=None) of q1 at
-     SF 10, and the train path's corpus selection at 10,000,000
-     documents) plus edge cases (a ragged
+     SF 10, the train path's corpus selection at 10,000,000
+     documents, the launch path's join dry-run and the join examples)
+     plus edge cases (a ragged
      size, a one-row table or key set, all -1 lanes, total = 0, all hits,
      all misses, keys outside the key range; for K2 and K3 the shapes a
      tiled merge gets wrong: a hub row over 100,000 slots, 50,000 empty
@@ -233,15 +256,26 @@ Phases (any failure raises, and the script exits non-zero):
   8. Timing: each kernel, its plain version and, where one PyTorch call
      computes the same function, that call, as device time from
      torch.profiler after warm-up (all kernels of one call summed),
-     beside the least time the card could take (bound); CUDA-event wall
-     times per call beside them. K5's record holds its two other shapes
+     beside the least time the card could take (bound; for K1 the table
+     bytes its probes reach, not the whole table); CUDA-event wall times
+     per call beside them. Each is timed 3 times on a warm L2 and 3 times
+     on a cold one (twice the L2 written over before each call): min,
+     median and max of both, printed on a `timing:` line per kernel.
+     Every profiler session of the script, in every phase, is guarded
+     (profiled()): it opens with a throwaway lead kernel, and a write
+     marks each call or step, its kernel counted and left out of the sum;
+     a session that lost a marker runs again, and after 5 the run fails.
+     The phase runs in a child process (python3 chip_smoke.py
+     --timing-child IN OUT, on the parent's captured inputs): sessions of
+     the main process lose events as it ages. A `profiler:` line gives
+     each process's sessions, leads lost and reruns. K5's record holds its two other shapes
      under "shapes"; every record its launches on its path ("launches"),
      on the eager path ("eager_launches"), the serving path
      ("serving_launches"), the chaos path ("chaos_launches"), the
      analysis path ("analysis_launches"), the distributed path
      ("distributed_launches"), the model path ("model_launches"), the
-     train path ("train_launches") and the launch path
-     ("launch_launches").
+     train path ("train_launches"), the launch path ("launch_launches")
+     and the examples ("examples_launches").
 
 The last line is {"ok": true, "device": {...}}; the line before it the
 `kernels` JSON record, and before that the card's name and power limit.
@@ -250,6 +284,7 @@ It needs one card, and fails when there is none.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import subprocess
 import sys
@@ -316,11 +351,13 @@ def kernel_modules():
 # ---------------------------------------------------------------------------
 
 
-def two_paths(a: np.ndarray, b: np.ndarray):
+def two_paths(a: np.ndarray, b: np.ndarray, second=None):
     """The row-level 2-paths (a, b, c) of knows(a,b), knows(b,c), one per
-    pair of rows (bag semantics), as three columns."""
-    order = np.argsort(a, kind="stable")
-    a_s, b_s = a[order], b[order]
+    pair of rows (bag semantics), as three columns. `second`, where given,
+    is the (b, c) columns of another relation in place of knows(b,c)."""
+    sa, sb = (a, b) if second is None else second
+    order = np.argsort(sa, kind="stable")
+    a_s, b_s = sa[order], sb[order]
     lo = np.searchsorted(a_s, b, "left")
     cnt = np.searchsorted(a_s, b, "right") - lo
     first = np.repeat(np.arange(len(a)), cnt)
@@ -328,13 +365,16 @@ def two_paths(a: np.ndarray, b: np.ndarray):
     return a[first], b[first], b_s[lo[first] + offs]
 
 
-def triangle_oracle(a: np.ndarray, b: np.ndarray):
+def triangle_oracle(a: np.ndarray, b: np.ndarray, second=None, third=None):
     """Bag triangles of knows(a,b), knows(b,c), knows(c,a): enumerate the
     row-level 2-paths (a,b,c) and count the closing edges (c,a) of each.
-    Returns (count, rows (M, 3) with multiplicity expanded, 2-paths)."""
-    pa, pb, pc = two_paths(a, b)
-    width = int(max(a.max(), b.max())) + 1
-    ekeys, ecount = np.unique(a * width + b, return_counts=True)
+    `second` and `third`, where given, are the (b, c) and (c, a) columns
+    of two other relations, as in R(x,y), S(y,z), T(z,x). Returns (count,
+    rows (M, 3) with multiplicity expanded, 2-paths)."""
+    pa, pb, pc = two_paths(a, b, second)
+    ta, tb = (a, b) if third is None else third
+    width = int(max(c.max() for c in (a, b, ta, tb, *(second or ())))) + 1
+    ekeys, ecount = np.unique(ta * width + tb, return_counts=True)
     want = pc * width + pa
     pos = np.clip(np.searchsorted(ekeys, want), 0, len(ekeys) - 1)
     close = np.where(ekeys[pos] == want, ecount[pos], 0)
@@ -419,15 +459,21 @@ def main_path(device: str, seed: int, sf: float, star_n: int, star_dom: int, syn
 # ---------------------------------------------------------------------------
 
 
+def chain_oracle(edges) -> int:
+    """Count of a path query, `edges` the (from, to) columns of each of its
+    relations in path order: the paths leaving each value, folded back
+    from the last relation to the first."""
+    width = max(int(col.max()) for edge in edges for col in edge) + 1
+    paths = np.ones(width, np.int64)
+    for src, dst in reversed(edges):
+        paths = np.bincount(src, weights=paths[dst], minlength=width).astype(np.int64)
+    return int(paths.sum())
+
+
 def chain4_oracle(rels) -> int:
-    """Count of R(a,b) S(b,c) T(c,d) U(d,e): per S row, the R rows ending
-    at its b times the (T, U) paths leaving its c."""
-    c = {a: r.columns for a, r in rels.items()}
-    width = int(max(int(col.max()) for cols in c.values() for col in cols.values())) + 1
-    r_into_b = np.bincount(c["R"]["b"], minlength=width).astype(np.int64)
-    u_from_d = np.bincount(c["U"]["d"], minlength=width).astype(np.int64)
-    tu_from_c = np.bincount(c["T"]["c"], weights=u_from_d[c["T"]["d"]], minlength=width)
-    return int((r_into_b[c["S"]["b"]] * tu_from_c[c["S"]["c"]].astype(np.int64)).sum())
+    """Count of R(a,b) S(b,c) T(c,d) U(d,e)."""
+    return chain_oracle([tuple(rels[a].columns[v] for v in vs)
+                         for a, vs in (("R", "ab"), ("S", "bc"), ("T", "cd"), ("U", "de"))])
 
 
 def streaming_triangle(device: str, seed: int, sf: float, sync, batches: int = 8,
@@ -451,8 +497,9 @@ def streaming_triangle(device: str, seed: int, sf: float, sync, batches: int = 8
     knows = lsqb_knows(sf=sf, seed=seed + 1)
     q1, rels = lsqb_q1(knows)
     views = [rels[a] for a in ("K1", "K2", "K3")]  # three renamings of one table
-    # + 2 profiled batches + 1 recorded
-    edges = knows_inserts(sf, (batches + 3) * batch, seed=seed + 2, table_seed=seed + 1)
+    # + 1 cProfiled batch, 1 recorded, and one for each profiled session
+    edges = knows_inserts(sf, (batches + 2 + PROFILE_TRIES) * batch, seed=seed + 2,
+                          table_seed=seed + 1)
     rng = np.random.default_rng(seed + 3)
 
     def check(when):
@@ -508,10 +555,12 @@ def streaming_triangle(device: str, seed: int, sf: float, sync, batches: int = 8
     if eng.refresh() or eng.stages_recomputed != recomputed:
         fail("standing q1: a refresh with no mutation recomputed a stage")
     rec["count_at_end"] = check("at the end")
-    rec["profile"] = profile_run(lambda: ingest(batches), lambda: ingest(batches + 1))
+    profiled_batches = iter(range(batches + 2, batches + 2 + PROFILE_TRIES))
+    rec["profile"] = profile_run(lambda: ingest(next(profiled_batches)),
+                                 lambda: ingest(batches + 1))
     rec["count_after_profiled_batches"] = check("after the profiled batches")
     with capture_largest() as seen:
-        ingest(batches + 2)
+        ingest(batches)
     rec["tries_equal_rebuild"] = check_cached_tries(views)
     rec["builds_after_registration"] = TRIE_CACHE.builds - builds
     if rec["builds_after_registration"] or rec["tombstone_refreshes"] <= 0:
@@ -582,7 +631,8 @@ def check_cached_tries(views) -> int:
 
 def profile_run(device_run, host_run, top: int = 8):
     """Where one run's time goes (an ingest, an eager query). `device_run`
-    runs under torch.profiler:
+    runs under torch.profiler (a guarded session, profiled(): a session
+    that lost events runs it again):
     its wall time, the summed device time of every kernel it launched (the
     device's busy time; one stream, so nothing overlaps) and the idle
     share, with the kernels taking most device time. `host_run` runs under
@@ -590,13 +640,10 @@ def profile_run(device_run, host_run, top: int = 8):
     import cProfile
     import pstats
 
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        wall = device_run()[0]
-    dev = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    events, (run,) = profiled(device_run, 1, cpu=True)
+    wall = run[0]
+    dev = [(e.key, e.self_device_time_total, e.count) for e in events
+           if e.self_device_time_total > 0]
     busy_ms = sum(us for _k, us, _n in dev) / 1e3
     out = {"profiled_wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
            "idle_share": 1 - busy_ms / (wall * 1e3),
@@ -883,9 +930,9 @@ def serving_path(device: str, seed: int, workloads, sync, slots: int = 16):
         unfiltered()
         rec[f"{name}_one_dispatch"] = {
             "host_syncs": sync_count(step),
-            "device_ms": device_ms(step, iters=5, warmup=1)[0],
+            "device_ms": device_ms(step, iters=5, warmup=1),
             "host_ms": wall_ms(step, iters=5, warmup=1),
-            "unfiltered_call_device_ms": device_ms(unfiltered, iters=5, warmup=1)[0],
+            "unfiltered_call_device_ms": device_ms(unfiltered, iters=5, warmup=1),
             "unfiltered_call_host_ms": wall_ms(unfiltered, iters=5, warmup=1),
             "unfiltered_call_host_syncs": sync_count(unfiltered)}
 
@@ -1342,7 +1389,7 @@ def spmd_cell(name, q, rels, num_shards: int, want: int, group, device: str, syn
     # the frontier one warm run needs per node (max over shards) beside
     # its capacities, and the device time of one warm call
     _count, need_expand, _nc = ctr.run_once(ctr.cap_plan)
-    dev_ms, timer = device_ms(ctr, iters=3, warmup=1)
+    dev_ms = device_ms(ctr, iters=3, warmup=1)
     if ctr.retries or ctr.compiles != 1:
         fail(f"distributed {name} x{num_shards}: warm calls retried {ctr.retries} times, "
              f"built {ctr.compiles} executors")
@@ -1356,7 +1403,6 @@ def spmd_cell(name, q, rels, num_shards: int, want: int, group, device: str, syn
                                "mean": float(rows.sum()) / num_shards}
     rec.update(warm_ms=float(np.median(times[1:])), warm_first_ms=times[0], syncs=syncs,
                crossings=[what for _kind, what, _n in crossings], device_ms=dev_ms,
-               timer=timer,
                need_expand=need_expand.tolist(),
                launches={k: launches[k] for k in JOIN_KERNELS}, shard_rows=shard_rows,
                skew={a: r["padded"] / r["mean"] if r["mean"] else None
@@ -1854,12 +1900,8 @@ def step_ops(eng) -> int:
 def steady_step(eng, trace, sync) -> dict:
     """One engine in steady decode: a new batch of requests admitted (one
     step), then one step's host syncs (sync_count), its device ms and the
-    kernels it launched (torch.profiler, 5 steps), and the host ms of 5
-    more steps without the profiler."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    kernels it launched (torch.profiler, 5 steps in a guarded session,
+    profiled()), and the host ms of 5 more steps without the profiler."""
     from repro_torch.serve import Request
 
     base = 1000
@@ -1868,11 +1910,7 @@ def steady_step(eng, trace, sync) -> dict:
     eng.step()
     syncs = sync_count(eng.step)
     sync()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            eng.step()
-        sync()
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    events, _ = profiled(eng.step, 5)
     device_ms = sum(e.self_device_time_total for e in events) / 5 / 1e3
     if device_ms <= 0:
         fail("model path: torch.profiler recorded no device time for a decode step")
@@ -2116,10 +2154,9 @@ def timed_training(params, cfg, device: str, seed: int, sync, seq: int = 4096,
     """qwen2-1.5b whole at the config's own dtypes (fp32 parameters, bf16
     compute, remat on), AdamW with fp32 moments, markov_batch at seq 4,096
     and batch 2: 2 warm-up steps then 8 timed, all on one fixed batch (the
-    loss must fall); one step's host syncs and one profiled step."""
+    loss must fall); one step's host syncs and one profiled step (a
+    guarded session, profiled())."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import SHAPES
     from repro_torch.launch.roofline import PEAK_FLOPS, model_flops
@@ -2145,12 +2182,14 @@ def timed_training(params, cfg, device: str, seed: int, sync, seq: int = 4096,
         sync()
         times.append((time.perf_counter() - t) * 1e3)
     peak = torch.cuda.max_memory_allocated() / 2**20
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def profiled_step():
         t = time.perf_counter()
         step(params, state, data)
         sync()
-        profiled_ms = (time.perf_counter() - t) * 1e3
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        return (time.perf_counter() - t) * 1e3
+
+    events, (profiled_ms,) = profiled(profiled_step, 1)
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
     losses = [float(v) for v in losses]
@@ -2330,6 +2369,171 @@ def train_path(device: str, seed: int, sync, qwen2) -> tuple:
     rec["corpus"], seen = corpus_selection(device, seed, sync)
     print("train: " + json.dumps(rec), flush=True)
     return rec, seen
+
+
+# ---------------------------------------------------------------------------
+# the examples phase: examples/torch_*.py, each main() run in process
+# ---------------------------------------------------------------------------
+
+# the kernels the quickstart's compiled sections must launch (K3 runs where
+# a compaction is scheduled)
+QUICKSTART_KERNELS = ("hash_probe", "csr_expand", "radix_rank")
+
+
+def load_example(name: str):
+    """examples/<name>.py as a module (examples/ is not a package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def kernel_counter(device: str):
+    """(reset, read) of the kernels' counts: launches on the card; on the
+    CPU, where every wrapper runs its plain version, plain calls."""
+    from repro_torch.kernels import _build
+
+    mods = kernel_modules()
+    base = {}
+
+    def reset():
+        for m in mods.values():
+            m.launches = 0
+        base.update(_build.plain_calls)
+
+    def read():
+        if device == "cpu":
+            return {k: _build.plain_calls[k] - base[k] for k in mods}
+        return {k: m.launches for k, m in mods.items()}
+
+    return reset, read
+
+
+def check_quickstart(out) -> dict:
+    """Every count of examples/torch_quickstart.py against numpy oracles on
+    the columns each section started from."""
+    inp = out["inputs"]
+
+    def triangles(r, s, t):
+        return triangle_oracle(r["x"], r["y"], (s["y"], s["z"]), (t["z"], t["x"]))
+
+    tri = inp["triangle"]
+    want, rows, _ = triangles(tri["R"], tri["S"], tri["T"])
+    got = [*out["triangle"].values(), out["compiled"]["cold"], *out["compiled"]["warm"],
+           out["streaming"]["registered"]]
+    if any(c != want for c in got):
+        fail(f"examples: quickstart triangle counts {got}, the oracle {want}")
+    if any(r != [(0, 0, 0, 0)] for r in out["clover"].values()):
+        fail(f"examples: clover rows {out['clover']}, not the one tuple (0, 0, 0, 0)")
+    def chain(cols):  # A(x,y) B(y,z) C(z,w) D(w,u)
+        return chain_oracle([(cols[a][u], cols[a][v]) for a, u, v in
+                             (("A", "x", "y"), ("B", "y", "z"), ("C", "z", "w"), ("D", "w", "u"))])
+
+    want_b, want_d = chain(inp["chain"]), chain(inp["dense_chain"])
+    if out["bushy"]["count"] != want_b:
+        fail(f"examples: bushy count {out['bushy']['count']}, the oracle {want_b}")
+    dense = [*out["optimize_level"].values(), out["verified"]]
+    if any(c != want_d for c in dense):
+        fail(f"examples: optimize_level/verify counts {dense}, the oracle {want_d}")
+    filtered = {c: int((rows[:, 0] == c).sum()) for c in out["serving"]["counts"]}
+    if out["serving"]["counts"] != filtered or out["serving"]["dispatches"] != 1:
+        fail(f"examples: serving {out['serving']}, the oracle {filtered}")
+    res = out["resilience"]
+    if any(res["counts"][c] != filtered[c] for c in res["counts"]) or \
+            res["faults_absorbed"] != 1 or res["fired"] != 1:
+        fail(f"examples: resilience {res}, the oracle {filtered}")
+    st, r = out["streaming"], dict(tri["R"])
+    standing = []
+    for delta in inp["deltas"]:
+        r = {v: np.concatenate([r[v], delta[v]]) for v in r}
+        standing.append(triangles(r, tri["S"], tri["T"])[0])
+    standing.append(triangles({v: c[64:] for v, c in r.items()}, tri["S"], tri["T"])[0])
+    if st["ingests"] + [st["deleted"]] != standing or st["builds_after_register"] != 0:
+        fail(f"examples: standing counts {st}, the oracle {standing}")
+    return {"triangles": want, "clover_rows": 1, "bushy": want_b, "dense_chain": want_d,
+            "serving": filtered, "rungs": res["degraded_to"], "standing": standing,
+            "delta_merges": st["delta_merges"], "tombstone_refreshes": st["tombstone_refreshes"]}
+
+
+def check_analytics(out) -> dict:
+    rel = out["relations"]
+    score, canonical = rel["quality"].columns["score"], rel["dedup"].columns["canonical"]
+    kept = np.flatnonzero((score >= 60) & (canonical == rel["dedup"].columns["doc"]))
+    if not np.array_equal(out["kept"], kept):
+        fail(f"examples: analytics kept {len(out['kept'])} docs, the oracle {len(kept)}")
+    knows = rel["knows"].columns
+    want = triangle_oracle(knows["a"], knows["b"])[0]
+    if out["triangles"] != want or np.prod(list(out["shares"].values())) != 8:
+        fail(f"examples: analytics triangles {out['triangles']} over shares "
+             f"{out['shares']}, the oracle {want}")
+    return {"kept": len(kept), "triangles": want, "shares": out["shares"]}
+
+
+def check_serve_lm(out) -> dict:
+    if not (out["done"] == 24 and out["new_tokens"] == 24 * 32
+            and out["free_pages"] == out["num_pages"]):
+        fail(f"examples: serve_lm done {out['done']}/24, {out['new_tokens']} new tokens, "
+             f"{out['free_pages']}/{out['num_pages']} pages free")
+    return {k: out[k] for k in ("steps", "done", "new_tokens", "free_pages")} | {
+        "tokens_per_s": out["new_tokens"] / out["seconds"]}
+
+
+def check_train_lm(out) -> dict:
+    losses, steps = out["losses"], out["steps"]
+    resume = out["resume"] or {}
+    if not (out["verdict"] == "LEARNED" and np.isfinite(losses).all()
+            and resume.get("bit_exact") and resume.get("restored_step") == steps // 2 + 1):
+        fail(f"examples: train_lm {out['verdict']}, losses {losses[0]} -> {losses[-1]}, "
+             f"resume {resume}")
+    return {"steps": steps, "first_loss": losses[0], "last_loss": losses[-1],
+            "verdict": out["verdict"], "resume": resume}
+
+
+def examples_path(device: str, seed: int, sync) -> tuple:
+    """The examples phase: each examples/torch_*.py main() run in process
+    with --device, the kernels' counts set to 0 just before each and read
+    just after, every result held against numpy oracles, and K1, K2 and K4
+    required during the quickstart. The examples draw from their own fixed
+    seeds (the reference examples'), so `seed` does not reach them.
+    Prints the `examples:` line; returns (its record, the largest kernel
+    inputs the join examples gave, the counts summed over the examples,
+    each example's main() result)."""
+    import tempfile
+
+    reset, read = kernel_counter(device)
+    rec, total, seen_all, outs = {"card": card_line() if device == "cuda" else "cpu"}, {}, {}, {}
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as ckpt:
+        runs = [
+            ("torch_quickstart", [], check_quickstart),
+            ("torch_analytics_pipeline", [], check_analytics),
+            ("torch_serve_lm", [], check_serve_lm),
+            ("torch_train_lm", ["--resume-demo", "--ckpt-dir", ckpt], check_train_lm),
+        ]
+        for name, argv, check in runs:
+            main = load_example(name).main
+            reset()
+            t = time.perf_counter()
+            with capture_largest() as seen:
+                out = main(["--device", device, *argv])
+            sync()
+            seconds = time.perf_counter() - t
+            counts = read()
+            outs[name] = out
+            rec[name] = {"s": seconds, "counts": check(out), "launches": counts}
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+            for k, (size, args) in seen.items():
+                if k not in seen_all or size > seen_all[k][0]:
+                    seen_all[k] = (size, args)
+            print(f"examples path: {name} " + json.dumps(rec[name]), flush=True)
+    missing = [k for k in QUICKSTART_KERNELS if rec["torch_quickstart"]["launches"][k] <= 0]
+    if missing:
+        fail(f"examples: the quickstart never launched {missing}")
+    print("examples: " + json.dumps(rec), flush=True)
+    return rec, {k: args for k, (_size, args) in seen_all.items()}, total, outs
 
 
 # ---------------------------------------------------------------------------
@@ -2848,60 +3052,174 @@ def wall_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 3) -> tuple[float, str]:
-    """Per-call device time: the summed durations of every kernel (and
-    device copy or fill) the call ran, from torch.profiler's CUDA trace.
-    Returns (ms, timer). Where the trace holds no device time, the time
-    between CUDA events (wall_ms) stands in, and `timer` says so."""
+PROFILE_TRIES = 5  # sessions of one reading before a run gives up
+# leading kernels a session starts with (grows when a session loses
+# markers), and what the sessions of this process lost
+PROFILE_LEAD = [1]
+PROFILE_STATS = {"sessions": 0, "leads_lost": 0, "rerun": 0}
+
+
+@functools.cache
+def markers():
+    """(writes, names, lead, lead_names). writes = {"warm": write, "cold":
+    write}: the marker write run once before each profiled call or step,
+    one kernel each. The warm one fills 1 byte, which leaves the L2 as it
+    is; the cold one fills a scratch buffer of twice the card's L2
+    (torch.cuda.get_device_properties(0).L2_cache_size) with a new int8
+    value, evicting what the last call left there. `lead` fills one int16
+    and opens every session: in a long-running process torch.profiler can
+    drop a session's first device event, so that one is a throwaway. The
+    names are the kernels as torch.profiler names them, found in sessions
+    of their own; the run fails if three tries do not find them."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    big = torch.empty(2 * torch.cuda.get_device_properties(0).L2_cache_size,
+                      dtype=torch.int8, device="cuda")
+    small = torch.empty(1, dtype=torch.int8, device="cuda")
+    lead_buf = torch.empty(1, dtype=torch.int16, device="cuda")
+    value = [0]
+
+    def filler(buf):
+        def write():
+            value[0] = value[0] % 127 + 1
+            buf.fill_(value[0])
+        return write
+
+    writes, lead = {"warm": filler(small), "cold": filler(big)}, filler(lead_buf)
+
+    def session(*fns) -> dict:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            lead()
+            torch.cuda.synchronize()
+            for fn in fns:
+                fn()
+            torch.cuda.synchronize()
+        return {e.key: e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+    torch.cuda.synchronize()
+    for _ in range(3):
+        lead_names = frozenset(k for k, n in session(lead, lead).items() if n >= 2)
+        marks = {k: n for k, n in session(*writes.values()).items() if k not in lead_names}
+        if lead_names and sum(marks.values()) == 2:
+            return writes, frozenset(marks), lead, lead_names
+    fail("profiler: three tries did not name the marker and lead kernels")
+
+
+def profiled(fn, calls: int, cold: bool = False, cpu: bool = False):
+    """`calls` calls of fn under torch.profiler's CUDA trace (and the
+    host's, with cpu=True), each after one marker write (markers(); the
+    cold one with cold=True), whose kernels are counted and left out. The
+    session opens with PROFILE_LEAD[0] lead kernels and a synchronize,
+    left out too: a session can lose its first device event. A session
+    that holds other than one marker kernel a call lost events and runs
+    again with 8 times the leads (kept for later sessions); after
+    PROFILE_TRIES such sessions the run fails, so no reading comes from a
+    partial trace. A call that runs a kernel of the marker's name fails.
+    PROFILE_STATS counts the sessions, the leads lost and the reruns.
+    Returns (the other CUDA events, fn's results)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    writes, names, lead, lead_names = markers()
+    write = writes["cold" if cold else "warm"]
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    for _ in range(PROFILE_TRIES):
+        outs, leads = [], PROFILE_LEAD[0]
+        with profile(activities=activities) as prof:
+            for _ in range(leads):
+                lead()
+            torch.cuda.synchronize()
+            for _ in range(calls):
+                write()
+                outs.append(fn())
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        marks = sum(e.count for e in events if e.key in names)
+        kept_leads = sum(e.count for e in events if e.key in lead_names)
+        PROFILE_STATS["sessions"] += 1
+        PROFILE_STATS["leads_lost"] += leads - kept_leads
+        if marks > calls or kept_leads > leads:
+            fail(f"profiler: the profiled call runs a marker or lead kernel "
+                 f"{sorted(names | lead_names)}")
+        if marks == calls:
+            return [e for e in events if e.key not in names | lead_names], outs
+        print(f"profiler: a session kept {marks} of {calls} marker writes and {kept_leads} of "
+              f"{leads} leads; running it again with {8 * leads} leads", flush=True)
+        PROFILE_STATS["rerun"] += 1
+        PROFILE_LEAD[0] = 8 * leads
+    fail(f"profiler: {PROFILE_TRIES} sessions in a row lost marker writes")
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3, cold: bool = False) -> float:
+    """Per-call device time: the summed durations of every kernel (and
+    device copy or fill) the call ran, from torch.profiler's CUDA trace
+    of `iters` calls after `warmup` (a guarded session, profiled())."""
+    import torch
+
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA)
-    if total_us <= 0:
-        return wall_ms(fn, iters, warmup), "cuda_events"
-    return total_us / iters / 1e3, "profiler_device_time"
+    events, _ = profiled(fn, iters, cold=cold)
+    return sum(e.self_device_time_total for e in events) / iters / 1e3
 
 
-def probe_steps(slots, keys, queries, budget) -> int:
-    """Linear-probing steps this run's queries take (each lane stops at
-    its first hit or empty slot): the data-dependent work of K1."""
+def spread(fn, iters: int, warmup: int, cold: bool, reps: int = 3) -> dict:
+    """device_ms `reps` times over: min, median and max ms."""
+    ms = sorted(device_ms(fn, iters, warmup, cold) for _ in range(reps))
+    return {"min": ms[0], "median": ms[len(ms) // 2], "max": ms[-1]}
+
+
+SECTOR = 32  # bytes: the unit a scattered read moves from HBM
+
+
+def probe_reach(slots, keys, queries, budget) -> tuple[int, int]:
+    """(steps, table bytes) of this run's linear probing, each lane
+    stopping at its first hit or empty slot: the data-dependent work of
+    K1, and the 32-byte sectors of `slots` its steps read and of `keys`
+    its compared candidate rows span, in bytes."""
     import torch
     from repro_torch.kernels.hash_probe import mix32
 
     h = (mix32(queries) & (slots.shape[0] - budget - 1)).long()
     done = torch.zeros(h.shape, dtype=torch.bool, device=h.device)
     steps = torch.zeros((), dtype=torch.int64, device=h.device)
+    slot_at, rows = [], []
     for p in range(budget):
-        steps += (~done).sum()
+        live = ~done
+        steps += live.sum()
         cand = slots[h + p]
+        slot_at.append((h + p)[live])
+        rows.append(cand[live & (cand >= 0)].long())
         hit = (cand >= 0) & (keys[cand.clamp(min=0).long()] == queries).all(dim=-1)
         done |= hit | (cand < 0)
-    return int(steps)
+    slot_sectors = torch.unique(torch.cat(slot_at) * slots.element_size() // SECTOR)
+    row = torch.unique(torch.cat(rows))
+    width = keys.shape[1] * keys.element_size()
+    key_sectors = torch.unique(torch.cat([row * width // SECTOR,
+                                          ((row + 1) * width - 1) // SECTOR]))
+    return int(steps), SECTOR * (slot_sectors.numel() + key_sectors.numel())
 
 
 def bounds(name, args) -> tuple[float, float]:
     """(bytes, operations) the kernel's function needs on these inputs:
     each input read once and each output written once; operations as
-    compare/select/arithmetic steps of the work this data needs. K2 and K3
-    compute ub(j), the count of a monotone array's entries <= j, for
-    consecutive slots: one compare and one select per entry and per slot,
-    whatever implements it."""
+    compare/select/arithmetic steps of the work this data needs. K1's
+    table term is what this run's probes reach (probe_reach's sectors),
+    not the whole table: a probe reads the slots from its hash to its
+    first hit or empty slot and the key rows of the candidates it
+    compares, and the rest of the table need not move. K2 and K3 compute
+    ub(j), the count of a monotone array's entries <= j, for consecutive
+    slots: one compare and one select per entry and per slot, whatever
+    implements it."""
     nb = lambda t: t.numel() * t.element_size()  # noqa: E731
     if name == "hash_probe":
         slots, keys, q, budget = args
         k = q.shape[1]
-        steps = probe_steps(slots, keys, q, budget)
-        return (nb(slots) + nb(keys) + nb(q) + 4 * q.shape[0],
-                q.shape[0] * 6 * k + steps * (k + 3))
+        steps, table = probe_reach(slots, keys, q, budget)
+        return nb(q) + 4 * q.shape[0] + table, q.shape[0] * 6 * k + steps * (k + 3)
     if name == "csr_expand":
         starts, base, total, cap = args
         live = min(cap, int(total))
@@ -2956,47 +3274,98 @@ def library_call(name, args, captured=None):
     return None
 
 
-def time_kernel(mods, name, args, captured=None) -> dict:
+def time_kernel(mods, name, args, captured) -> dict:
     """Device time of kernel `name`, its plain version and the library
     call on one input, beside the bound; the CUDA-event time per call
-    beside them. L2 is warm: the same inputs are reused across the timed
-    calls."""
+    beside them. Each is timed 3 times over on a warm L2 (the same inputs
+    reused across the timed calls) and 3 times over on a cold one
+    (markers()' cold write over twice the L2 before each call):
+    "ms", "cold_ms", "plain_ms", ... are the medians, "warm", "cold",
+    "plain_warm", ... the min, median and max."""
     from repro_torch.launch.roofline import HBM_BW
 
     kernel, plain = wrapper_of(mods, name), plain_of(mods, name)
     lib = library_call(name, args, captured)
-    ms, timer = device_ms(lambda: kernel(*args))
-    plain_ms, _ = device_ms(lambda: plain(*args), iters=5, warmup=1)
+    fns = {"": (lambda: kernel(*args), 20, 3), "plain_": (lambda: plain(*args), 5, 1)}
+    if lib is not None:
+        fns["library_"] = (lib, 20, 3)
+    rec = {"library_ms": None, "library_cold_ms": None}
+    for key, (fn, iters, warmup) in fns.items():
+        warm = spread(fn, iters, warmup, cold=False)
+        cold = spread(fn, iters, warmup, cold=True)
+        rec.update({f"{key}ms": warm["median"], f"{key}cold_ms": cold["median"],
+                    f"{key}warm": warm, f"{key}cold": cold})
     nbytes, ops = bounds(name, args)
     t_bytes, t_ops = nbytes / HBM_BW * 1e3, ops / SCALAR_OPS_PER_S * 1e3
-    return {
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": device_ms(lib)[0] if lib is not None else None,
-        "timer": timer,
+    rec.update({
+        "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_bytes": nbytes, "bound_ops": ops,
         "wall_ms": wall_ms(lambda: kernel(*args)),
         "plain_wall_ms": wall_ms(lambda: plain(*args), iters=5, warmup=1),
         "shape": [list(a.shape) if hasattr(a, "shape") else a for a in args],
-    }
+    })
+    if name == "hash_probe":  # the bound with the whole table read, as before
+        whole = sum(t.numel() * t.element_size() for t in args[:3]) + 4 * args[2].shape[0]
+        rec["whole_table_bound_ms"] = max(whole / HBM_BW * 1e3, t_ops)
+    print(f"timing: {name} {rec['shape']} warm ms {fmt(rec['warm'])} cold ms "
+          f"{fmt(rec['cold'])} bound {rec['bound_ms']:.6f} ms ({rec['bound_by']}); plain "
+          f"{fmt(rec['plain_warm'])} / {fmt(rec['plain_cold'])}; library "
+          + (f"{fmt(rec['library_warm'])} / {fmt(rec['library_cold'])}" if lib else "none"),
+          flush=True)
+    return rec
 
 
-def timing(mods, captured, launches, other_launches, errors, paths, k5_shapes):
+def fmt(s: dict) -> str:
+    return "/".join(f"{s[k]:.6f}" for k in ("min", "median", "max"))
+
+
+def timing_child(inputs: str, out: str) -> int:
+    """The timing phase's body, run in a process of its own: the main
+    process's profiler sessions lose events as it ages (see profiled()),
+    and a fresh process's lose none. Times every kernel on `inputs` (torch.save of the parent's
+    captured inputs and K5's shapes) and writes the timings to `out`."""
+    import torch
+
+    data = torch.load(inputs, weights_only=False)
+    mods = kernel_modules()
+    captured = data["captured"]
+    timed = {name: time_kernel(mods, name, captured[name], captured)
+             for name in KERNELS}
+    timed["intersect"]["shapes"] = [
+        {"name": shape, **time_kernel(mods, "intersect", args, None)}
+        for shape, args in data["k5_shapes"].items()]
+    Path(out).write_text(json.dumps(timed))
+    print("timing child profiler: " + json.dumps(PROFILE_STATS), flush=True)
+    return 0
+
+
+def timing(captured, launches, other_launches, errors, paths, k5_shapes):
     """One record per kernel, timed on the largest input of its path; K5's
-    record also holds its other shapes, each timed the same way.
-    `other_launches` maps a record key ("eager_launches", ...) to the
-    kernels' counts on that path."""
+    record also holds its other shapes, each timed the same way (in a
+    child process, timing_child). `other_launches` maps a record key
+    ("eager_launches", ...) to the kernels' counts on that path."""
+    import torch
+
+    inputs, out = ROOT / "build" / "timing_inputs.pt", ROOT / "build" / "timing.json"
+    torch.save({"captured": captured, "k5_shapes": k5_shapes}, inputs)
+    try:
+        rc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--timing-child",
+                             str(inputs), str(out)], cwd=ROOT, timeout=900).returncode
+    finally:
+        inputs.unlink(missing_ok=True)
+    if rc != 0:
+        fail(f"timing: the timing child exited with {rc}")
+    timed = json.loads(out.read_text())
+    out.unlink()
     records = []
     for name, (_m, source, replaces) in KERNELS.items():
         rec = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                "launches": launches[name],
                **{key: counts[name] for key, counts in other_launches.items()},
                "path": paths[name],
-               "parity": "exact", "max_abs_err": errors[name]}
-        rec.update(time_kernel(mods, name, captured[name], captured))
-        if name == "intersect":
-            rec["shapes"] = [{"name": shape, "max_abs_err": errors[f"{name} {shape}"],
-                              **time_kernel(mods, name, args)}
-                             for shape, args in k5_shapes.items()]
+               "parity": "exact", "max_abs_err": errors[name], **timed[name]}
+        for shape in rec.get("shapes", []):
+            shape["max_abs_err"] = errors[f"{name} {shape['name']}"]
         records.append(rec)
     return records
 
@@ -3042,6 +3411,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--launch-child", nargs=2, metavar=("WHAT", "OUT"), default=None,
                     help=argparse.SUPPRESS)  # the launch phase's fake worlds
+    ap.add_argument("--timing-child", nargs=2, metavar=("IN", "OUT"), default=None,
+                    help=argparse.SUPPRESS)  # the timing phase's fresh process
     args = ap.parse_args(argv)
 
     import torch
@@ -3052,6 +3423,8 @@ def main(argv=None) -> int:
         return 2
     if args.launch_child:
         return launch_child(*args.launch_child, args.seed)
+    if args.timing_child:
+        return timing_child(*args.timing_child)
     from repro_torch.kernels import _build
 
     device = "cuda"
@@ -3115,6 +3488,11 @@ def main(argv=None) -> int:
     launch_seen, launch_launches = drive("launch path", ("hash_probe", "csr_expand",
                                                          "radix_rank"),
                                          launch_path, device, args.seed)
+    # the four examples, each with its own counts set to 0 and read
+    t = time.perf_counter()
+    _, examples_seen, examples_launches, _ = examples_path(device, args.seed, sync)
+    print("examples path launches: " + json.dumps(examples_launches), flush=True)
+    print(f"examples took {time.perf_counter() - t:.1f} s", flush=True)
     k5_args, k5_counts = drive("intersect path", ("intersect",), intersect_path,
                                workloads[1]["K1"], device)
     launches["intersect"], paths["intersect"] = k5_counts["intersect"], "intersect path"
@@ -3125,19 +3503,22 @@ def main(argv=None) -> int:
     errors = parity(mods, captured, {"standing-q1 ingest": q1_seen,
                                      "stage replay": replay_seen,
                                      "batched dispatch": serving_seen, **distributed_seen,
-                                     "train path": train_seen, **launch_seen},
+                                     "train path": train_seen, **launch_seen,
+                                     "examples": examples_seen},
                     eager_seen, paths, k5_shapes, device)
     cold_breakdown(workloads, sync)
     print(f"clocks before timing: {clock_line()}", flush=True)
-    kernels = timing(mods, captured, launches, {"eager_launches": eager_launches,
-                                                "serving_launches": serving_launches,
-                                                "chaos_launches": chaos_launches,
-                                                "analysis_launches": analysis_launches,
-                                                "distributed_launches": distributed_launches,
-                                                "model_launches": model_launches,
-                                                "train_launches": train_launches,
-                                                "launch_launches": launch_launches},
+    kernels = timing(captured, launches, {"eager_launches": eager_launches,
+                                          "serving_launches": serving_launches,
+                                          "chaos_launches": chaos_launches,
+                                          "analysis_launches": analysis_launches,
+                                          "distributed_launches": distributed_launches,
+                                          "model_launches": model_launches,
+                                          "train_launches": train_launches,
+                                          "launch_launches": launch_launches,
+                                          "examples_launches": examples_launches},
                      errors, paths, k5_shapes)
+    print("profiler: " + json.dumps(PROFILE_STATS), flush=True)
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

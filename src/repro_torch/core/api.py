@@ -30,7 +30,7 @@ a kernel build or launch error among them, propagates to the caller.
 from __future__ import annotations
 
 import warnings
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -41,6 +41,7 @@ from repro_torch.core.optimizer import FilteredStats, JoinOrderOptimizer, Stats,
 from repro_torch.core.plan import (
     BinaryPlan,
     FreeJoinPlan,
+    decompose_tree,
     gj_plan,
     stage_plans,
     var_order_from_fj,
@@ -81,6 +82,37 @@ class ExecOptions:
     chain_stages: bool = True
     optimize_level: int = 1
     verify: bool = False
+
+
+# one release of backwards compatibility: compiled_free_join's old loose
+# kwargs still work but warn (collapse them into ExecOptions). The
+# reference's impl= and jit= have no counterpart here: device= takes the
+# place of impl, and there is no jit to turn off.
+_LEGACY_OPTION_KWARGS = ("budget", "safety", "compact_threshold", "chain_stages")
+
+
+def _resolve_options(options: ExecOptions | None, legacy: dict) -> ExecOptions:
+    unknown = sorted(set(legacy) - set(_LEGACY_OPTION_KWARGS))
+    if unknown:
+        raise TypeError(
+            f"compiled_free_join() got unexpected keyword arguments {unknown}; "
+            "where it runs is options=ExecOptions(device=...)"
+        )
+    given = {k: v for k, v in legacy.items() if v is not None}
+    if given:
+        warnings.warn(
+            f"passing {sorted(given)} as loose kwargs is deprecated; "
+            "pass options=ExecOptions(...) instead",
+            DeprecationWarning,
+            stacklevel=3,
+        )
+    return replace(options or ExecOptions(), **given)
+
+
+# stage derivation lives in core/plan.py (the optimizer's device cost model
+# needs it too); the old private names stay importable
+_decompose = decompose_tree
+_stage_plans = stage_plans
 
 
 # warm serving surface: whole AdaptiveExecutors reused across
@@ -407,8 +439,15 @@ def compiled_free_join(
     options: ExecOptions | None = None,
     filters: dict[str, int] | None = None,
     info: dict | None = None,
+    **legacy,
 ):
     """Compiled driver, no manual capacities (see module docstring).
+
+    Execution knobs ride in `options` (ExecOptions); the old loose kwargs
+    budget/safety/compact_threshold/chain_stages (`legacy`) still work for
+    one release behind a DeprecationWarning; any other keyword, such as the
+    reference's impl= or jit=, raises TypeError: the device is chosen by
+    ExecOptions(device=...).
 
     Zero-row inputs run through the executor natively (an empty relation
     is a trie whose every frontier expansion yields zero live lanes).
@@ -441,7 +480,7 @@ def compiled_free_join(
     (bound, mult) host numpy arrays over live rows. `info`, if given,
     receives the runner, capacity plan, retry/reshape/compile counters, the
     options and the chosen plan tree (`plan_tree`)."""
-    opts = options or ExecOptions()
+    opts = _resolve_options(options, legacy)
     filters = dict(filters or {})
     unknown = set(filters) - set(query.variables)
     if unknown:

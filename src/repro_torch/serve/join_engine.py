@@ -64,8 +64,8 @@ the growth quota exhausts its own max_retries and is rejected wholesale;
 compliant neighbors are re-dispatched free of charge (the batch strictly
 shrinks, so the loop terminates).
 
-The port has no static plan verifier yet (ROADMAP: `analysis/`), so
-submit() rejects only what canonicalize refuses (a ValueError).
+submit() runs the static plan verifier (analysis.planlint) and rejects
+what it or canonicalize refuses (a ValueError), see serve/README.md.
 """
 from __future__ import annotations
 
