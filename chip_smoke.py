@@ -244,8 +244,11 @@ Phases (any failure raises, and the script exits non-zero):
      rows or dead lanes in a row, total or live above the capacity; for
      K5 the bucket directory's: b over the whole int32 range, N = 1 and 2,
      a dense run with one far outlier, 300,000 consecutive keys, queries
-     at b[0] and b[N-1], Q = 1).
-     K5 also on its two other shapes: the reference's kern.intersect.100k
+     at b[0] and b[N-1], Q = 1; for K1 its contract's corners at key
+     widths 1 to 5, hash_probe_corners, with `slots` also a view one
+     element into its storage, and tiled to a call large enough for K1's
+     large-call kernel).
+     K1 also on its two other timed shapes; K5 on its two: the reference's kern.intersect.100k
      (100,000 sorted queries into the distinct keys of 100,000 draws from
      [0, 2^30)) and large N (4,194,304 queries, half members, into
      2,097,152 distinct keys from [0, 2^24)); every K5 input is held
@@ -269,7 +272,11 @@ Phases (any failure raises, and the script exits non-zero):
      --timing-child IN OUT, on the parent's captured inputs): sessions of
      the main process lose events as it ages. A `profiler:` line gives
      each process's sessions, leads lost and reruns. K5's record holds its two other shapes
-     under "shapes"; every record its launches on its path ("launches"),
+     under "shapes", K1's two (the star's probe of its 6,000,000-row table,
+     8,192 rows, and the eager path's largest probe), and K1's `timing:`
+     lines add the mean probe steps a lane, the table bytes the probes
+     reach against the whole table's, and the share of dead (-1) lanes;
+     every record its launches on its path ("launches"),
      on the eager path ("eager_launches"), the serving path
      ("serving_launches"), the chaos path ("chaos_launches"), the
      analysis path ("analysis_launches"), the distributed path
@@ -327,14 +334,25 @@ def fail(msg: str):
 
 def ptxas_report(log: str):
     """(kernel function, line) for ptxas's register, spill and shared-memory
-    lines in an nvcc -Xptxas -v log."""
+    lines in an nvcc -Xptxas -v log; a template instance is named by its
+    demangled name (c++filt), e.g. probe_rows<3, 2>."""
     import re
+    import shutil
 
     fn = "?"
     for line in log.splitlines():
         if "Function properties for" in line:
             m = re.search(r"\d([a-z_]+_kernel)", line)
-            fn = m.group(1) if m else line.split()[-1][:40]
+            symbol = line.split()[-1]
+            if m:
+                fn = m.group(1)
+            elif shutil.which("c++filt"):
+                name = subprocess.run(["c++filt", symbol], capture_output=True,
+                                      text=True).stdout.strip()
+                name = name.replace("(anonymous namespace)::", "").split("(")[0]
+                fn = re.sub(r"^void ", "", name)
+            else:
+                fn = symbol[:40]
         elif "registers" in line or "spill" in line:
             yield fn, line.strip()
 
@@ -2874,10 +2892,137 @@ def capture_main_path_inputs(workloads):
     return {name: args for name, (_size, args) in seen.items()}
 
 
+def capture_star_probe(workloads):
+    """The star's probe of its largest relation's table (8,192 query rows
+    into the 16,777,248 slots of its 6,000,000 rows): a call too small to
+    fill the card, whose time is the probe's latency."""
+    from repro_torch.core import compiled_free_join
+
+    _q1, _q1_rels, star, star_rels, opts = workloads
+    rows = max(r.num_rows for r in star_rels.values())
+    with capture_largest(keep=lambda name, args: args[1].shape[0] == rows) as seen:
+        compiled_free_join(star, star_rels, agg="count", options=opts)
+    if "hash_probe" not in seen:
+        fail(f"the star probed no table of {rows} rows")
+    return seen["hash_probe"][1]
+
+
+def hash_probe_corners(k: int, cap: int = 1024):
+    """A hand-built K1 table of width k and the queries that test the
+    probe's contract at its corners: a matching row after an empty slot, a
+    match only at h + budget (one step past the last), a match at the last
+    step, duplicate rows in one chain (the first in probe order wins, though
+    its row index is the larger), home slots in the last 8 slots of cap, one
+    at cap - 1 whose chain runs to h + 31 through the tail margin, a slot
+    holding a row index past the table's end (clamped for the compare, the
+    slot's value returned), keys with negative columns and INT32_MIN (k > 1),
+    all -1 (dead) rows, and misses. Returns (slots, keys, queries, want) as
+    int32 numpy arrays, `want` the contract's answer for each query, from a
+    loop over the contract written here and checked against what each
+    corner was built to give."""
+    import torch
+    from repro_torch.kernels.hash_probe import PROBE_BUDGET, mix32
+
+    rng = np.random.default_rng(1000 + k)
+    i32 = np.iinfo(np.int32)
+    slots = np.full(cap + PROBE_BUDGET, -1, np.int64)
+    keys, queries, intended = [], [], []
+
+    def fresh(lo, hi, negative=False):
+        """A new key row whose home slot lies in [lo, hi); with `negative`,
+        every column below 0 and the first INT32_MIN (for k > 1)."""
+        for _ in range(100):
+            rows = rng.integers(i32.min, 0, (4096, k)) if negative else \
+                rng.integers(0, i32.max, (4096, k))
+            if negative and k > 1:
+                rows[:, 0] = i32.min
+            home = mix32(torch.as_tensor(rows.astype(np.int32))).numpy() & (cap - 1)
+            hit = np.flatnonzero((home >= lo) & (home < hi))
+            if len(hit):
+                return rows[hit[0]], int(home[hit[0]])
+        fail(f"hash_probe_corners: no key row of width {k} hashes into [{lo}, {hi})")
+
+    def row(keyrow) -> int:
+        keys.append(keyrow)
+        return len(keys) - 1
+
+    def decoy() -> int:  # a row that no query equals
+        return row(rng.integers(i32.min, i32.max, k))
+
+    def ask(q, want):
+        queries.append(q)
+        intended.append(want)
+
+    q, h = fresh(64, 96)  # a match right after an empty slot
+    slots[h + 1] = row(q)
+    ask(q, -1)
+    q, h = fresh(128, 160)  # a miss, an empty slot, then the match
+    slots[h], slots[h + 2] = decoy(), row(q)
+    ask(q, -1)
+    for lo, step in ((200, PROBE_BUDGET), (300, PROBE_BUDGET - 1)):  # past / at the last step
+        q, h = fresh(lo, lo + 8)
+        slots[h:h + step] = [decoy() for _ in range(step)]
+        r = slots[h + step] = row(q)
+        ask(q, -1 if step == PROBE_BUDGET else r)
+    q, h = fresh(400, 408)  # duplicates: the first in probe order wins
+    first, second = row(q), row(q)
+    slots[h], slots[h + 1], slots[h + 2] = decoy(), second, first
+    ask(q, second)
+    for negative in (False, True):  # found at home, without and with INT32_MIN
+        q, h = fresh(500 + 40 * negative, 530 + 40 * negative, negative)
+        slots[h] = row(q)
+        ask(q, int(slots[h]))
+    q, h = fresh(cap - 8, cap - 1)  # home in the last 8 slots of cap
+    slots[h] = row(q)
+    ask(q, int(slots[h]))
+    q, h = fresh(cap - 1, cap)  # home cap - 1: the chain runs through the tail
+    slots[h:h + PROBE_BUDGET - 1] = [decoy() for _ in range(PROBE_BUDGET - 1)]
+    r = slots[h + PROBE_BUDGET - 1] = row(q)
+    ask(q, r)
+    q, h = fresh(700, 708)  # a slot past the last row: clamped to it
+    slots[h] = len(keys) + 5
+    row(q)  # the last row
+    ask(q, len(keys) + 4)
+    for _ in range(8):
+        ask(rng.integers(i32.min, i32.max, k), -1)  # misses
+    ask(np.full(k, -1), -1)  # a dead lane
+
+    slots32, keys32 = slots.astype(np.int32), np.asarray(keys, np.int64).astype(np.int32)
+    qs = np.asarray(queries, np.int64).astype(np.int32)
+    homes = mix32(torch.as_tensor(qs)).numpy() & (cap - 1)
+    want = np.full(len(qs), -1, np.int32)
+    for i, (qrow, home) in enumerate(zip(qs, homes)):
+        for p in range(PROBE_BUDGET):
+            cand = int(slots32[home + p])
+            if cand < 0:
+                break
+            if np.array_equal(keys32[min(cand, len(keys32) - 1)], qrow):
+                want[i] = cand
+                break
+    if not np.array_equal(want, intended):
+        fail(f"hash_probe_corners(k={k}): a corner does not give what it was built to give")
+    return slots32, keys32, qs, want
+
+
+# query rows of a K1 call that takes its large-call kernel on an H100 (at
+# least 4 rows for each of the 132 x 2,048 threads the card holds)
+K1_LARGE_CALL = 1 << 21
+
+
+def offset_view(a, device, offset: int = 1):
+    """`a` as a contiguous view `offset` elements into a larger tensor."""
+    import torch
+
+    base = torch.as_tensor(np.concatenate([np.full(offset, 7, a.dtype), a])).to(device)
+    return base[offset:]
+
+
 def edge_cases(device):
     """Per kernel, inputs the main path may not reach: ragged sizes, a
-    one-row table, all -1 query lanes, a table of negative (pad) keys, and
-    total/live = 0."""
+    one-row table, all -1 query lanes, a table of negative (pad) keys,
+    total/live = 0, and K1's hand-built corners (hash_probe_corners) at
+    widths 1 to 5, with `slots` also as a view one element into its
+    storage, and their queries tiled to K1_LARGE_CALL rows."""
     import torch
     from repro_torch.kernels import ops
 
@@ -2902,6 +3047,13 @@ def edge_cases(device):
             (padded.slots, padded.keys, t(padded_q), 32),
         ],
     }
+    for k in range(1, 6):
+        slots, keys, queries, _want = hash_probe_corners(k)
+        large = np.tile(queries, (-(-K1_LARGE_CALL // len(queries)), 1))
+        cases["hash_probe"] += [(t(slots), t(keys), q, ops.PROBE_BUDGET) for q in
+                                (t(queries), t(large))]
+        cases["hash_probe"].append((offset_view(slots, device), t(keys), t(queries),
+                                    ops.PROBE_BUDGET))
     counts = rng.integers(0, 5, 777)
     cum = np.cumsum(counts)
     starts, base = t(cum - counts), t(rng.integers(0, 10**6, 777))
@@ -2982,15 +3134,16 @@ def max_abs_err(got, want) -> int:
     return max(errs)
 
 
-def parity(mods, captured, streamed, eager, paths, k5_shapes, device):
+def parity(mods, captured, streamed, eager, paths, shapes, device):
     """Exact equality of each kernel and its plain version, on the largest
     input its path gave it (`captured`; `paths` names the path), the
     streaming path's largest (`streamed`: one standing-q1 ingest's, and
     the stage replay's registration and first batch's), the eager path's
-    (`eager`: one free_join(agg=None) of q1 at SF 10), for K5 its other
-    shapes (`k5_shapes`), and the edge cases; every K5 result also equals
-    numpy's. Returns name -> max abs error on the `captured` input, and
-    "intersect <shape>" -> that on each of K5's other shapes."""
+    (`eager`: one free_join(agg=None) of q1 at SF 10), its other timed
+    shapes (`shapes`: kernel -> shape name -> inputs; K1's and K5's), and
+    the edge cases; every K5 result also equals numpy's. Returns name ->
+    max abs error on the `captured` input, and "<name> <shape>" -> that on
+    each of its other shapes."""
     errors = {}
     cases = edge_cases(device)
     for name in JOIN_KERNELS:
@@ -3004,8 +3157,7 @@ def parity(mods, captured, streamed, eager, paths, k5_shapes, device):
             fail(f"{name}: the {paths[name]} gave it no input to compare on")
         where = [(paths[name], captured[name])] + [
             (path, seen[name]) for path, seen in streamed.items() if name in seen]
-        if name == "intersect":
-            where += [(f"{shape} shape", args) for shape, args in k5_shapes.items()]
+        where += [(f"{shape} shape", args) for shape, args in shapes.get(name, {}).items()]
         for i, args in enumerate([args for _p, args in where] + cases[name]):
             got = wrapper_of(mods, name)(*args)
             want = plain_of(mods, name)(*args)
@@ -3175,35 +3327,37 @@ def spread(fn, iters: int, warmup: int, cold: bool, reps: int = 3) -> dict:
 SECTOR = 32  # bytes: the unit a scattered read moves from HBM
 
 
-def probe_reach(slots, keys, queries, budget) -> tuple[int, int]:
+def probe_reach(slots, keys, queries, budget) -> tuple:
     """(steps, table bytes) of this run's linear probing, each lane
     stopping at its first hit or empty slot: the data-dependent work of
-    K1, and the 32-byte sectors of `slots` its steps read and of `keys`
-    its compared candidate rows span, in bytes."""
+    K1 (steps: each query row's count, a tensor), and the 32-byte sectors
+    of `slots` its steps read and of `keys` its compared candidate rows
+    span, in bytes."""
     import torch
     from repro_torch.kernels.hash_probe import mix32
 
     h = (mix32(queries) & (slots.shape[0] - budget - 1)).long()
     done = torch.zeros(h.shape, dtype=torch.bool, device=h.device)
-    steps = torch.zeros((), dtype=torch.int64, device=h.device)
+    steps = torch.zeros(h.shape, dtype=torch.int32, device=h.device)
     slot_at, rows = [], []
     for p in range(budget):
         live = ~done
-        steps += live.sum()
+        steps += live
         cand = slots[h + p]
+        row = cand.clamp(0, keys.shape[0] - 1).long()  # the contract's clamp
         slot_at.append((h + p)[live])
-        rows.append(cand[live & (cand >= 0)].long())
-        hit = (cand >= 0) & (keys[cand.clamp(min=0).long()] == queries).all(dim=-1)
+        rows.append(row[live & (cand >= 0)])
+        hit = (cand >= 0) & (keys[row] == queries).all(dim=-1)
         done |= hit | (cand < 0)
     slot_sectors = torch.unique(torch.cat(slot_at) * slots.element_size() // SECTOR)
     row = torch.unique(torch.cat(rows))
     width = keys.shape[1] * keys.element_size()
     key_sectors = torch.unique(torch.cat([row * width // SECTOR,
                                           ((row + 1) * width - 1) // SECTOR]))
-    return int(steps), SECTOR * (slot_sectors.numel() + key_sectors.numel())
+    return steps, SECTOR * (slot_sectors.numel() + key_sectors.numel())
 
 
-def bounds(name, args) -> tuple[float, float]:
+def bounds(name, args, reach=None) -> tuple[float, float]:
     """(bytes, operations) the kernel's function needs on these inputs:
     each input read once and each output written once; operations as
     compare/select/arithmetic steps of the work this data needs. K1's
@@ -3213,13 +3367,13 @@ def bounds(name, args) -> tuple[float, float]:
     compares, and the rest of the table need not move. K2 and K3 compute
     ub(j), the count of a monotone array's entries <= j, for consecutive
     slots: one compare and one select per entry and per slot, whatever
-    implements it."""
+    implements it. `reach`: K1's probe_reach(*args), where computed."""
     nb = lambda t: t.numel() * t.element_size()  # noqa: E731
     if name == "hash_probe":
         slots, keys, q, budget = args
         k = q.shape[1]
-        steps, table = probe_reach(slots, keys, q, budget)
-        return nb(q) + 4 * q.shape[0] + table, q.shape[0] * 6 * k + steps * (k + 3)
+        steps, table = reach or probe_reach(slots, keys, q, budget)
+        return nb(q) + 4 * q.shape[0] + table, q.shape[0] * 6 * k + int(steps.sum()) * (k + 3)
     if name == "csr_expand":
         starts, base, total, cap = args
         live = min(cap, int(total))
@@ -3295,7 +3449,8 @@ def time_kernel(mods, name, args, captured) -> dict:
         cold = spread(fn, iters, warmup, cold=True)
         rec.update({f"{key}ms": warm["median"], f"{key}cold_ms": cold["median"],
                     f"{key}warm": warm, f"{key}cold": cold})
-    nbytes, ops = bounds(name, args)
+    reach = probe_reach(*args) if name == "hash_probe" else None
+    nbytes, ops = bounds(name, args, reach)
     t_bytes, t_ops = nbytes / HBM_BW * 1e3, ops / SCALAR_OPS_PER_S * 1e3
     rec.update({
         "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -3304,14 +3459,23 @@ def time_kernel(mods, name, args, captured) -> dict:
         "plain_wall_ms": wall_ms(lambda: plain(*args), iters=5, warmup=1),
         "shape": [list(a.shape) if hasattr(a, "shape") else a for a in args],
     })
+    extra = ""
     if name == "hash_probe":  # the bound with the whole table read, as before
-        whole = sum(t.numel() * t.element_size() for t in args[:3]) + 4 * args[2].shape[0]
+        slots, keys, q, _budget = args
+        whole = sum(t.numel() * t.element_size() for t in args[:3]) + 4 * q.shape[0]
         rec["whole_table_bound_ms"] = max(whole / HBM_BW * 1e3, t_ops)
+        rec.update({"steps_per_lane": int(reach[0].sum()) / max(q.shape[0], 1),
+                    "reached_table_bytes": reach[1],
+                    "table_bytes": slots.numel() * 4 + keys.numel() * 4,
+                    "dead_lanes": int((q[:, 0] == -1).sum()) / max(q.shape[0], 1)})
+        extra = (f"; steps a lane {rec['steps_per_lane']:.4f}, table bytes reached "
+                 f"{rec['reached_table_bytes']} of {rec['table_bytes']}, dead lanes "
+                 f"{rec['dead_lanes']:.6f}")
     print(f"timing: {name} {rec['shape']} warm ms {fmt(rec['warm'])} cold ms "
           f"{fmt(rec['cold'])} bound {rec['bound_ms']:.6f} ms ({rec['bound_by']}); plain "
           f"{fmt(rec['plain_warm'])} / {fmt(rec['plain_cold'])}; library "
-          + (f"{fmt(rec['library_warm'])} / {fmt(rec['library_cold'])}" if lib else "none"),
-          flush=True)
+          + (f"{fmt(rec['library_warm'])} / {fmt(rec['library_cold'])}" if lib else "none")
+          + extra, flush=True)
     return rec
 
 
@@ -3323,7 +3487,7 @@ def timing_child(inputs: str, out: str) -> int:
     """The timing phase's body, run in a process of its own: the main
     process's profiler sessions lose events as it ages (see profiled()),
     and a fresh process's lose none. Times every kernel on `inputs` (torch.save of the parent's
-    captured inputs and K5's shapes) and writes the timings to `out`."""
+    captured inputs and K1's and K5's other shapes) and writes the timings to `out`."""
     import torch
 
     data = torch.load(inputs, weights_only=False)
@@ -3331,23 +3495,23 @@ def timing_child(inputs: str, out: str) -> int:
     captured = data["captured"]
     timed = {name: time_kernel(mods, name, captured[name], captured)
              for name in KERNELS}
-    timed["intersect"]["shapes"] = [
-        {"name": shape, **time_kernel(mods, "intersect", args, None)}
-        for shape, args in data["k5_shapes"].items()]
+    for name, shapes in data["shapes"].items():
+        timed[name]["shapes"] = [{"name": shape, **time_kernel(mods, name, args, None)}
+                                 for shape, args in shapes.items()]
     Path(out).write_text(json.dumps(timed))
     print("timing child profiler: " + json.dumps(PROFILE_STATS), flush=True)
     return 0
 
 
-def timing(captured, launches, other_launches, errors, paths, k5_shapes):
-    """One record per kernel, timed on the largest input of its path; K5's
-    record also holds its other shapes, each timed the same way (in a
-    child process, timing_child). `other_launches` maps a record key
+def timing(captured, launches, other_launches, errors, paths, shapes):
+    """One record per kernel, timed on the largest input of its path; K1's
+    and K5's records also hold their other shapes (`shapes`), each timed
+    the same way (in a child process, timing_child). `other_launches` maps a record key
     ("eager_launches", ...) to the kernels' counts on that path."""
     import torch
 
     inputs, out = ROOT / "build" / "timing_inputs.pt", ROOT / "build" / "timing.json"
-    torch.save({"captured": captured, "k5_shapes": k5_shapes}, inputs)
+    torch.save({"captured": captured, "shapes": shapes}, inputs)
     try:
         rc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--timing-child",
                              str(inputs), str(out)], cwd=ROOT, timeout=900).returncode
@@ -3499,13 +3663,15 @@ def main(argv=None) -> int:
 
     captured = capture_main_path_inputs(workloads)
     captured["intersect"] = k5_args
-    k5_shapes = intersect_shapes(args.seed, device)
+    shapes = {"hash_probe": {"star_small": capture_star_probe(workloads),
+                             "eager_q1": eager_seen["hash_probe"]},
+              "intersect": intersect_shapes(args.seed, device)}
     errors = parity(mods, captured, {"standing-q1 ingest": q1_seen,
                                      "stage replay": replay_seen,
                                      "batched dispatch": serving_seen, **distributed_seen,
                                      "train path": train_seen, **launch_seen,
                                      "examples": examples_seen},
-                    eager_seen, paths, k5_shapes, device)
+                    eager_seen, paths, shapes, device)
     cold_breakdown(workloads, sync)
     print(f"clocks before timing: {clock_line()}", flush=True)
     kernels = timing(captured, launches, {"eager_launches": eager_launches,
@@ -3517,7 +3683,7 @@ def main(argv=None) -> int:
                                           "train_launches": train_launches,
                                           "launch_launches": launch_launches,
                                           "examples_launches": examples_launches},
-                     errors, paths, k5_shapes)
+                     errors, paths, shapes)
     print("profiler: " + json.dumps(PROFILE_STATS), flush=True)
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": kernels}))

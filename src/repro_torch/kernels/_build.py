@@ -6,7 +6,9 @@ for Hopper (sm_90a) into `build/repro_torch_kernels/` at the repository
 root, named by a digest of the flags, the source and every header under
 csrc/, so that an edited kernel or header is rebuilt, and loads it with
 ctypes. `build(names)` compiles several sources at once, one nvcc process
-each, and returns what ptxas reports about registers and spills. Nothing
+each, and returns what ptxas reports about registers and spills;
+`compile_sources` and `use_library` build and launch another version of
+a kernel's source (tools/k1_ab.py). Nothing
 here falls back: a missing nvcc or a failed compile raises.
 """
 from __future__ import annotations
@@ -71,29 +73,56 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(names=KERNELS, *, verbose: bool = False) -> dict[str, str]:
-    """Compile the named kernels, one nvcc process each, all started
-    together. Returns name -> the compiler's diagnostics (ptxas register
-    and spill lines when `verbose`). Raises if any compile fails."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+def compile_sources(jobs: dict, *, verbose: bool = False) -> dict[str, str]:
+    """Compile each job's `(source, library)`: one nvcc process each, all
+    started together, csrc/ on the include path. Returns key -> the
+    compiler's diagnostics (ptxas register and spill lines when
+    `verbose`). Raises if any compile fails."""
     procs = {}
-    for name in names:
-        out = _lib_path(name)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    for key, (src, out) in jobs.items():
+        Path(out).parent.mkdir(parents=True, exist_ok=True)
+        tmp = Path(out).with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
-               "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True), tmp, out)
+               "-I", str(CSRC), "-o", str(tmp), str(src)]
+        procs[key] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True), tmp, out)
     logs, failed = {}, []
-    for name, (proc, tmp, out) in procs.items():
-        logs[name] = proc.communicate()[0]
+    for key, (proc, tmp, out) in procs.items():
+        logs[key] = proc.communicate()[0]
         if proc.returncode != 0:
-            failed.append(f"{name} (nvcc exit {proc.returncode}):\n{logs[name]}")
+            failed.append(f"{key} (nvcc exit {proc.returncode}):\n{logs[key]}")
         else:
             os.replace(tmp, out)  # atomic: a concurrent loader sees old or new
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
     return logs
+
+
+def build(names=KERNELS, *, verbose: bool = False) -> dict[str, str]:
+    """Compile the named kernels (compile_sources). Returns name -> the
+    compiler's diagnostics."""
+    return compile_sources({name: (CSRC / f"{name}.cu", _lib_path(name)) for name in names},
+                           verbose=verbose)
+
+
+def load(name: str, path) -> tuple:
+    """(C launcher, error-string function) of kernel `name`'s library at
+    `path`."""
+    lib = ctypes.CDLL(str(path))
+    symbol, argtypes = _SIGNATURES[name]
+    fn = getattr(lib, symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    lib.repro_error_string.argtypes = (ctypes.c_int,)
+    lib.repro_error_string.restype = ctypes.c_char_p
+    return fn, lib.repro_error_string
+
+
+def use_library(name: str, path) -> None:
+    """Launch kernel `name` from the library at `path` from now on: a
+    build of another version of its source, as tools/k1_ab.py compares."""
+    with _lock:
+        _launchers[name] = load(name, path)
 
 
 def launcher(name: str):
@@ -104,14 +133,7 @@ def launcher(name: str):
             path = _lib_path(name)
             if not path.exists():
                 build((name,))
-            lib = ctypes.CDLL(str(path))
-            symbol, argtypes = _SIGNATURES[name]
-            fn = getattr(lib, symbol)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-            lib.repro_error_string.argtypes = (ctypes.c_int,)
-            lib.repro_error_string.restype = ctypes.c_char_p
-            hit = (fn, lib.repro_error_string)
+            hit = load(name, path)
             _launchers[name] = hit
     return hit
 

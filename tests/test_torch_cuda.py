@@ -19,6 +19,8 @@ from repro_torch.relational.datagen import lowsel_star
 from repro_torch.relational.relation import Relation
 from repro_torch.relational.schema import triangle_query
 
+import chip_smoke
+
 pytestmark = pytest.mark.cuda
 
 
@@ -54,6 +56,23 @@ def test_hash_probe_kernel(cuda, n, k, q, rng):
     assert_kernel_matches_plain(hash_probe, "hash_probe", table.slots, table.keys, on(cuda, qs), 32)
     dead = on(cuda, np.full((q, k), -1))
     assert_kernel_matches_plain(hash_probe, "hash_probe", table.slots, table.keys, dead, 32)
+
+
+@pytest.mark.parametrize("call", ["small", "large"])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5])
+def test_hash_probe_kernel_corners(cuda, k, offset, call):
+    """test_torch_kernels.py::test_hash_probe_contract_corners' inputs on
+    the card: the kernel against its plain version and the contract, as
+    they are (a small call, probe_sector) and tiled to a large call
+    (chip_smoke.K1_LARGE_CALL rows, probe_rows)."""
+    slots, keys, qs, want = chip_smoke.hash_probe_corners(k)
+    if call == "large":
+        reps = -(-chip_smoke.K1_LARGE_CALL // len(qs))
+        qs, want = np.tile(qs, (reps, 1)), np.tile(want, reps)
+    args = (chip_smoke.offset_view(slots, cuda, offset), on(cuda, keys), on(cuda, qs), 32)
+    assert_kernel_matches_plain(hash_probe, "hash_probe", *args)
+    assert np.array_equal(hash_probe.hash_probe(*args).cpu().numpy(), want)
 
 
 # fan-outs a tiled merge gets wrong (the kernel merges 2,304 items a block)

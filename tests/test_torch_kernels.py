@@ -20,6 +20,8 @@ from repro.kernels.radix_sort import radix_rank_pallas
 from repro_torch.kernels import compact, csr_expand, hash_probe, intersect, ops, radix_sort, ref
 from test_torch_cuda import INTERSECT_HARD, intersect_hard_case
 
+import chip_smoke
+
 BLK = 1024  # the Pallas kernels' output block (OBLK/CBLK)
 
 
@@ -86,6 +88,27 @@ def test_hash_probe_vs_pallas(n, k, q, rng):
     got = hash_probe.hash_probe(ttable.slots, ttable.keys, t32(qs), hash_probe.PROBE_BUDGET)
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(ref.hash_probe_ref(t32(keys), t32(qs)).numpy(), want)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5])
+def test_hash_probe_contract_corners(k, offset):
+    """The probe's contract at its corners (chip_smoke.hash_probe_corners:
+    a match after an empty slot, a match only at h + budget, duplicate
+    rows in one chain, home slots in the last 8 slots of cap, a clamped
+    candidate, negative and INT32_MIN keys, dead lanes), key widths 1-5,
+    `slots` also a view one element into its storage: the plain version
+    against the reference's Pallas kernel and the contract's answers."""
+    slots, keys, qs, want = chip_smoke.hash_probe_corners(k)
+    padded = np.zeros((pad_to(len(qs), QBLK), k), np.int32)
+    padded[: len(qs)] = qs
+    pallas = np.asarray(hash_probe_pallas(jnp.asarray(slots), jnp.asarray(keys),
+                                          jnp.asarray(padded), interpret=True))[: len(qs)]
+    tslots = chip_smoke.offset_view(slots, "cpu", offset)
+    assert tslots.storage_offset() == offset
+    got = hash_probe.hash_probe(tslots, t32(keys), t32(qs), hash_probe.PROBE_BUDGET)
+    np.testing.assert_array_equal(pallas, want)
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_hash_probe_edge_lanes(rng):
