@@ -46,6 +46,7 @@ from repro_torch.core.plan import (
     stage_plans,
     var_order_from_fj,
 )
+from repro_torch.core.trace import TRACE
 from repro_torch.relational.relation import Relation
 from repro_torch.relational.schema import Atom, Query
 
@@ -345,89 +346,91 @@ def _acquire_runner(
     eager stages into it), cacheable=False marks hybrid multi-stage runs
     whose per-call stage relations make caching useless, and plan_tree is
     the binary plan actually chosen (the caller's, or the optimizer's)."""
-    from repro_torch.core.capacity import plan_chain_capacities
-    from repro_torch.core.compiled import AdaptiveExecutor, _base_aliases
+    with TRACE.plan_acquire:
+        from repro_torch.core.capacity import plan_chain_capacities
+        from repro_torch.core.compiled import AdaptiveExecutor, _base_aliases
 
-    cache = _runner_cache if cache is None else cache
-    rels = dict(relations)
-    stats = Stats(rels, cached=True)  # registry-backed distinct counts
-    if plan_tree is None:
-        # cost-based choice with the measured-cardinality feedback loop;
-        # the choice is memoized against the feedback store's version, so
-        # steady state pays one cache probe
-        plan_tree = JoinOrderOptimizer(
-            level=options.optimize_level,
-            safety=options.safety,
-            compact_threshold=options.compact_threshold,
-            feedback=relcache.FEEDBACK,
-        ).choose(query, rels, stats=stats)
-    stages = stage_plans(query, plan_tree)
-    # the hybrid path materializes fresh stage relations per call — a cache
-    # entry keyed on them could never hit (and its put would evict a live
-    # runner), so don't store one
-    cacheable = options.chain_stages or len(stages) == 1
-    if not cacheable:
-        if filter_vars:
-            raise ValueError("filters require chain_stages=True (the hybrid "
-                             "baseline's eager stages cannot parameterize constants)")
-        # hybrid baseline: non-root stages on the eager engine, root compiled
-        for name, fj in stages[:-1]:
-            bound, mult = engine.execute(
-                fj, rels, mode=_trie_modes(fj, "colt"), agg=None, device=options.device
-            )
-            rels[name] = Relation(name, materialize(bound, mult, fj.query.head))
-        stages = stages[-1:]
-    base = sorted(_base_aliases(stages))
-    key = _runner_key(stages, rels, base, agg, options, filter_vars, batch, max_capacity)
-    runner = cache.get(key) if cacheable else None
-    if runner is None:
-        pstats = stats
-        if filter_vars and batch is None:
-            # kill-mode filters prune the frontier as they apply, so
-            # capacity-plan for the selected slice, not the whole relation;
-            # this depends only on WHICH vars are filtered, never on the
-            # constants, so every query of the template shares the plan.
-            # Batched (mask-mode) runners keep the unfiltered frontier
-            # layout, shared across lanes, so plain stats size them right
-            pstats = FilteredStats(
-                stats,
-                {a.alias: frozenset(v for v in a.vars if v in filter_vars)
-                 for a in query.atoms},
-            )
-        cap_plan = plan_chain_capacities(
-            stages,
-            stats=pstats,
-            safety=options.safety,
-            compact_threshold=options.compact_threshold,
-            feedback=relcache.FEEDBACK,
-        )
-        if options.verify:
-            # full pre-build verification: plan structure, schedules,
-            # capacities, stage DAG, filter coverage — findings raised as
-            # one PlanVerificationError instead of a failure mid-run
-            from repro_torch.analysis.planlint import lint_chain
+        cache = _runner_cache if cache is None else cache
+        rels = dict(relations)
+        stats = Stats(rels, cached=True)  # registry-backed distinct counts
+        if plan_tree is None:
+            # cost-based choice with the measured-cardinality feedback loop;
+            # the choice is memoized against the feedback store's version, so
+            # steady state pays one cache probe
+            plan_tree = JoinOrderOptimizer(
+                level=options.optimize_level,
+                safety=options.safety,
+                compact_threshold=options.compact_threshold,
+                feedback=relcache.FEEDBACK,
+            ).choose(query, rels, stats=stats)
+        stages = stage_plans(query, plan_tree)
+        # the hybrid path materializes fresh stage relations per call — a cache
+        # entry keyed on them could never hit (and its put would evict a live
+        # runner), so don't store one
+        cacheable = options.chain_stages or len(stages) == 1
+        if not cacheable:
+            if filter_vars:
+                raise ValueError("filters require chain_stages=True (the hybrid "
+                                 "baseline's eager stages cannot parameterize constants)")
+            # hybrid baseline: non-root stages on the eager engine, root compiled
+            for name, fj in stages[:-1]:
+                bound, mult = engine.execute(
+                    fj, rels, mode=_trie_modes(fj, "colt"), agg=None, device=options.device
+                )
+                rels[name] = Relation(name, materialize(bound, mult, fj.query.head))
+            stages = stages[-1:]
+        base = sorted(_base_aliases(stages))
+        key = _runner_key(stages, rels, base, agg, options, filter_vars, batch, max_capacity)
+        runner = cache.get(key) if cacheable else None
+        if runner is None:
+            pstats = stats
+            if filter_vars and batch is None:
+                # kill-mode filters prune the frontier as they apply, so
+                # capacity-plan for the selected slice, not the whole relation;
+                # this depends only on WHICH vars are filtered, never on the
+                # constants, so every query of the template shares the plan.
+                # Batched (mask-mode) runners keep the unfiltered frontier
+                # layout, shared across lanes, so plain stats size them right
+                pstats = FilteredStats(
+                    stats,
+                    {a.alias: frozenset(v for v in a.vars if v in filter_vars)
+                     for a in query.atoms},
+                )
+            with TRACE.plan_capacity:
+                cap_plan = plan_chain_capacities(
+                    stages,
+                    stats=pstats,
+                    safety=options.safety,
+                    compact_threshold=options.compact_threshold,
+                    feedback=relcache.FEEDBACK,
+                )
+            if options.verify:
+                # full pre-build verification: plan structure, schedules,
+                # capacities, stage DAG, filter coverage — findings raised as
+                # one PlanVerificationError instead of a failure mid-run
+                from repro_torch.analysis.planlint import lint_chain
 
-            lint_chain(
-                stages, cap_plan, filter_vars=filter_vars, batch=batch
-            ).raise_errors()
-        if len(stages) == 1:  # classic single-stage surface (plain CapacityPlan)
-            cap_plan = cap_plan.stages[0]
-        plan_arg = stages[0][1] if len(stages) == 1 else tuple(stages)
-        runner = AdaptiveExecutor(
-            plan_arg,
-            cap_plan,
-            device=options.device,
-            budget=options.budget,
-            agg=agg,
-            tighten=True,
-            filter_vars=filter_vars,
-            batch=batch,
-            max_capacity=max_capacity,
-        )
-        if cacheable:
-            cache.put(key, runner, [rels[a] for a in base])
-            _govern_runner(cache, key, runner)
-    return runner, rels, cacheable, plan_tree
+                lint_chain(
+                    stages, cap_plan, filter_vars=filter_vars, batch=batch
+                ).raise_errors()
+            if len(stages) == 1:  # classic single-stage surface (plain CapacityPlan)
+                cap_plan = cap_plan.stages[0]
+            plan_arg = stages[0][1] if len(stages) == 1 else tuple(stages)
+            runner = AdaptiveExecutor(
+                plan_arg,
+                cap_plan,
+                device=options.device,
+                budget=options.budget,
+                agg=agg,
+                tighten=True,
+                filter_vars=filter_vars,
+                batch=batch,
+                max_capacity=max_capacity,
+            )
+            if cacheable:
+                cache.put(key, runner, [rels[a] for a in base])
+                _govern_runner(cache, key, runner)
+        return runner, rels, cacheable, plan_tree
 
 
 def compiled_free_join(
@@ -480,49 +483,50 @@ def compiled_free_join(
     (bound, mult) host numpy arrays over live rows. `info`, if given,
     receives the runner, capacity plan, retry/reshape/compile counters, the
     options and the chosen plan tree (`plan_tree`)."""
-    opts = _resolve_options(options, legacy)
-    filters = dict(filters or {})
-    unknown = set(filters) - set(query.variables)
-    if unknown:
-        raise ValueError(f"filter vars not in the query: {sorted(unknown)}")
-    filter_vars = tuple(sorted(filters))
-    runner, rels, cacheable, chosen_tree = _acquire_runner(
-        query, relations, plan_tree, agg=agg, options=opts, filter_vars=filter_vars
-    )
-    consts = (
-        np.asarray([filters[v] for v in filter_vars], np.int32) if filter_vars else None
-    )
-    # the hybrid baseline's stage relations are fresh every call: its
-    # root builds its tries in the run (caching would only insert
-    # dead-on-arrival entries)
-    degraded = None
-    try:
-        out = runner.run_relations(rels, reuse_tries=cacheable, filter_consts=consts)
-    except Exception as e:
-        if not faults.recoverable(e):
-            raise
-        warnings.warn(
-            f"compiled path degraded to eager free_join after {type(e).__name__}: {e}",
-            RuntimeWarning,
-            stacklevel=2,
+    with TRACE.query:
+        opts = _resolve_options(options, legacy)
+        filters = dict(filters or {})
+        unknown = set(filters) - set(query.variables)
+        if unknown:
+            raise ValueError(f"filter vars not in the query: {sorted(unknown)}")
+        filter_vars = tuple(sorted(filters))
+        runner, rels, cacheable, chosen_tree = _acquire_runner(
+            query, relations, plan_tree, agg=agg, options=opts, filter_vars=filter_vars
         )
-        degraded = f"{type(e).__name__}: {e}"
-        tree = chosen_tree if isinstance(chosen_tree, BinaryPlan) else None
-        live = {a: relcache.live_relation(r) for a, r in relations.items()}
-        out = free_join(query, live, tree, agg=agg, filters=filters or None, device=opts.device)
-    if info is not None:
-        info.update(
-            runner=runner,
-            cap_plan=runner.cap_plan,
-            retries=runner.retries,
-            reshapes=runner.reshapes,
-            compiles=runner.compiles,
-            options=opts,
-            plan_tree=chosen_tree,
+        consts = (
+            np.asarray([filters[v] for v in filter_vars], np.int32) if filter_vars else None
         )
-        if degraded is not None:
-            info.update(degraded_to="eager", degraded_from=degraded)
-    return out
+        # the hybrid baseline's stage relations are fresh every call: its
+        # root builds its tries in the run (caching would only insert
+        # dead-on-arrival entries)
+        degraded = None
+        try:
+            out = runner.run_relations(rels, reuse_tries=cacheable, filter_consts=consts)
+        except Exception as e:
+            if not faults.recoverable(e):
+                raise
+            warnings.warn(
+                f"compiled path degraded to eager free_join after {type(e).__name__}: {e}",
+                RuntimeWarning,
+                stacklevel=2,
+            )
+            degraded = f"{type(e).__name__}: {e}"
+            tree = chosen_tree if isinstance(chosen_tree, BinaryPlan) else None
+            live = {a: relcache.live_relation(r) for a, r in relations.items()}
+            out = free_join(query, live, tree, agg=agg, filters=filters or None, device=opts.device)
+        if info is not None:
+            info.update(
+                runner=runner,
+                cap_plan=runner.cap_plan,
+                retries=runner.retries,
+                reshapes=runner.reshapes,
+                compiles=runner.compiles,
+                options=opts,
+                plan_tree=chosen_tree,
+            )
+            if degraded is not None:
+                info.update(degraded_to="eager", degraded_from=degraded)
+        return out
 
 
 def binary_join(

@@ -94,6 +94,7 @@ import torch
 
 from repro_torch.core import faults, membudget, relcache
 from repro_torch.core.plan import FreeJoinPlan
+from repro_torch.core.trace import TRACE
 from repro_torch.core.transfers import TRANSFERS
 from repro_torch.kernels import ops
 from repro_torch.kernels.radix_sort import lex_searchsorted
@@ -637,10 +638,11 @@ class TrieCache:
                     share += 1
                 if share > presorted:
                     init_order, presorted = donor.order, share
-        trie = build_trie(
-            used, lops, budget=budget, key_bits=key_bits,
-            init_order=init_order, presorted=presorted,
-        )
+        with TRACE.tries_build:
+            trie = build_trie(
+                used, lops, budget=budget, key_bits=key_bits,
+                init_order=init_order, presorted=presorted,
+            )
         ns[key] = {"trie": trie, "cols": used}
         self.builds += 1
         if presorted:
@@ -755,7 +757,8 @@ class TrieCache:
             mult = (torch.arange(cap, dtype=_I32, device=dev) < st.total).to(_I32)
         # pads carry PAD_KEY keys and mult 0: the comparison sort routes
         # them to the tail, where every later merge expects them
-        trie = build_trie(used, lops, budget=budget, mult=mult)
+        with TRACE.tries_build:
+            trie = build_trie(used, lops, budget=budget, mult=mult)
         ns[key] = {
             "trie": trie,
             "cols": dict(trie.cols),
@@ -879,6 +882,11 @@ def make_executor(
       (B,) int64, or bound/valid/mult (B, cap), and the need vectors
       (B, num_executed_nodes), a lane-independent tensor broadcast along
       it.
+
+    After each call `fn.allocated` is (expansion sizes, compaction sizes),
+    per executed node the lanes its buffers took (0 where it made none:
+    the factorized count, a node that does not compact), for the lane
+    counters of core/trace.py.
     """
     plan.validate()
     filters = tuple(filters)
@@ -937,12 +945,17 @@ def make_executor(
         zero = torch.zeros((), dtype=_I32, device=device)
         need_expand = [zero] * nsched
         need_compact = [zero] * nsched
+        # lanes each node allocates: its expansion's capacity, its
+        # compaction's target (0 where it makes no such buffer)
+        alloc_expand = [0] * nsched
+        alloc_compact = [0] * nsched
 
         def squeeze(bound, gid, mult, valid, fvalid, cap, c_compact, i):
             """Pack the valid lanes into a fresh c_compact-wide frontier
             (on `valid` alone: the mask-mode filter mask rides along)."""
             src, live = ops.compact_indices(valid, c_compact)
             need_compact[i] = live
+            alloc_compact[i] = c_compact
             srcc = src.clamp(0, cap - 1)
             bound = {v: a[srcc] for v, a in bound.items()}
             gid = {a: arr[srcc] for a, arr in gid.items()}
@@ -955,87 +968,91 @@ def make_executor(
         for i, ((k, cover, probes), c_next, c_compact, cp_idx) in enumerate(
             zip(schedule, capacities, compact_to, compact_probe)
         ):
-            t = tries[cover.alias]
-            d = depth[cover.alias]
-            g = gid.get(cover.alias, torch.zeros(cap, dtype=_I32, device=device))
-            last = d == t.L - 1
-            # a filtered var can never take the factorized-count shortcut:
-            # its comparison against the constant needs the bound values
-            needed = _needed_later_static(plan, k, probes, agg) | set(filter_idx)
-            if agg == "count" and not (set(cover.vars) & needed) and last and not (
-                set(cover.vars) & set(bound)
-            ):
-                # factorized count (static decision)
-                mult = mult * torch.where(valid, t.rows_under(d, g), 1)
-                gid.pop(cover.alias, None)
-                depth[cover.alias] = t.L
-            else:
-                base, counts = t.iter_counts(d, g, last)
-                counts = torch.where(valid, counts, 0)
-                fr, member, vnew, total = ops.expand_counted(base, counts, c_next)
-                need_expand[i] = total
-                frc = fr.clamp(0, cap - 1)
-                memc = member.clamp(0, max(t.n - 1, 0))
-                bound = {v: a[frc] for v, a in bound.items()}
-                gid = {a: arr[frc] for a, arr in gid.items()}
-                mult = mult[frc]
-                if fvalid is not None:
-                    fvalid = fvalid[:, frc]
-                valid = vnew
-                cap = c_next
-                cols, new_g = t.bind_iter(d, memc, last)
-                for v, cvals in zip(cover.vars, cols):
-                    if v in bound:  # semijoin on re-bound vars
-                        valid = valid & (bound[v] == cvals)
-                    else:
-                        bound[v] = cvals
-                        if v in filter_idx and filter_kill:  # constant
-                            # selection the moment the var is bound: dead
-                            # lanes never reach a probe
-                            valid = valid & (cvals == filter_consts[filter_idx[v]])
-                        elif v in filter_idx:  # layout-neutral lane mask
-                            hit = cvals[None, :] == filter_consts[:, filter_idx[v], None]
-                            fvalid = hit if fvalid is None else fvalid & hit
-                depth[cover.alias] = d + 1
-                if new_g is None or depth[cover.alias] == t.L:
-                    # last-level iteration enumerates physical rows, so bag
-                    # multiplicity is already accounted for — except on a
-                    # weighted (stage-output) trie, whose per-row mult folds
-                    # in here and whose mult-0 pad rows die on the spot.
-                    rm = t.iter_mult(memc)
-                    if rm is not None:
-                        mult = mult * torch.where(valid, rm, 1)
-                        valid = valid & (rm > 0)
+            with TRACE.exec_node(i):
+                t = tries[cover.alias]
+                d = depth[cover.alias]
+                g = gid.get(cover.alias, torch.zeros(cap, dtype=_I32, device=device))
+                last = d == t.L - 1
+                # a filtered var can never take the factorized-count shortcut:
+                # its comparison against the constant needs the bound values
+                needed = _needed_later_static(plan, k, probes, agg) | set(filter_idx)
+                if agg == "count" and not (set(cover.vars) & needed) and last and not (
+                    set(cover.vars) & set(bound)
+                ):
+                    # factorized count (static decision)
+                    mult = mult * torch.where(valid, t.rows_under(d, g), 1)
                     gid.pop(cover.alias, None)
+                    depth[cover.alias] = t.L
                 else:
-                    gid[cover.alias] = new_g
-            compacted = False
-            for j, sa in enumerate(probes):
-                tp = tries[sa.alias]
-                dp = depth[sa.alias]
-                gp = gid.get(sa.alias, torch.zeros(cap, dtype=_I32, device=device))
-                keys = [bound[v] for v in sa.vars]
-                child = tp.probe(dp, torch.where(valid, gp, -1), keys)
-                valid = valid & (child >= 0)
-                childc = child.clamp(0, max(tp.n - 1, 0))
-                depth[sa.alias] = dp + 1
-                if depth[sa.alias] == tp.L:
-                    mult = mult * torch.where(valid, tp.rows_under(tp.L, childc), 1)
-                    gid.pop(sa.alias, None)
-                else:
-                    gid[sa.alias] = childc
-                if c_compact is not None and not compacted and j + 1 >= cp_idx and c_compact < cap:
-                    # squeeze dead lanes out mid-node: the remaining probes
-                    # (and all later nodes) run at c_compact
+                    base, counts = t.iter_counts(d, g, last)
+                    counts = torch.where(valid, counts, 0)
+                    fr, member, vnew, total = ops.expand_counted(base, counts, c_next)
+                    need_expand[i] = total
+                    alloc_expand[i] = c_next
+                    frc = fr.clamp(0, cap - 1)
+                    memc = member.clamp(0, max(t.n - 1, 0))
+                    bound = {v: a[frc] for v, a in bound.items()}
+                    gid = {a: arr[frc] for a, arr in gid.items()}
+                    mult = mult[frc]
+                    if fvalid is not None:
+                        fvalid = fvalid[:, frc]
+                    valid = vnew
+                    cap = c_next
+                    cols, new_g = t.bind_iter(d, memc, last)
+                    for v, cvals in zip(cover.vars, cols):
+                        if v in bound:  # semijoin on re-bound vars
+                            valid = valid & (bound[v] == cvals)
+                        else:
+                            bound[v] = cvals
+                            if v in filter_idx and filter_kill:  # constant
+                                # selection the moment the var is bound: dead
+                                # lanes never reach a probe
+                                valid = valid & (cvals == filter_consts[filter_idx[v]])
+                            elif v in filter_idx:  # layout-neutral lane mask
+                                hit = cvals[None, :] == filter_consts[:, filter_idx[v], None]
+                                fvalid = hit if fvalid is None else fvalid & hit
+                    depth[cover.alias] = d + 1
+                    if new_g is None or depth[cover.alias] == t.L:
+                        # last-level iteration enumerates physical rows, so bag
+                        # multiplicity is already accounted for — except on a
+                        # weighted (stage-output) trie, whose per-row mult folds
+                        # in here and whose mult-0 pad rows die on the spot.
+                        rm = t.iter_mult(memc)
+                        if rm is not None:
+                            mult = mult * torch.where(valid, rm, 1)
+                            valid = valid & (rm > 0)
+                        gid.pop(cover.alias, None)
+                    else:
+                        gid[cover.alias] = new_g
+                compacted = False
+                for j, sa in enumerate(probes):
+                    tp = tries[sa.alias]
+                    dp = depth[sa.alias]
+                    gp = gid.get(sa.alias, torch.zeros(cap, dtype=_I32, device=device))
+                    keys = [bound[v] for v in sa.vars]
+                    child = tp.probe(dp, torch.where(valid, gp, -1), keys)
+                    valid = valid & (child >= 0)
+                    childc = child.clamp(0, max(tp.n - 1, 0))
+                    depth[sa.alias] = dp + 1
+                    if depth[sa.alias] == tp.L:
+                        mult = mult * torch.where(valid, tp.rows_under(tp.L, childc), 1)
+                        gid.pop(sa.alias, None)
+                    else:
+                        gid[sa.alias] = childc
+                    if (c_compact is not None and not compacted and j + 1 >= cp_idx
+                            and c_compact < cap):
+                        # squeeze dead lanes out mid-node: the remaining probes
+                        # (and all later nodes) run at c_compact
+                        bound, gid, mult, valid, fvalid, cap = squeeze(
+                            bound, gid, mult, valid, fvalid, cap, c_compact, i
+                        )
+                        compacted = True
+                if c_compact is not None and not compacted and c_compact < cap:
+                    # probe-less node (or unreached compact point): after-node
                     bound, gid, mult, valid, fvalid, cap = squeeze(
                         bound, gid, mult, valid, fvalid, cap, c_compact, i
                     )
-                    compacted = True
-            if c_compact is not None and not compacted and c_compact < cap:
-                # probe-less node (or unreached compact point): after-node
-                bound, gid, mult, valid, fvalid, cap = squeeze(
-                    bound, gid, mult, valid, fvalid, cap, c_compact, i
-                )
+        run.allocated = (alloc_expand, alloc_compact)
         ne = torch.stack(need_expand) if nsched else torch.zeros(0, dtype=_I32, device=device)
         nc = torch.stack(need_compact) if nsched else torch.zeros(0, dtype=_I32, device=device)
         if batched:
@@ -1125,7 +1142,11 @@ def make_chain_executor(
     filter-dead rows with multiplicity 0, so from there on each lane has
     its own stage buffer and every later stage runs once per lane, on a
     weighted trie built from that lane's buffer. Templates whose filters
-    all fall in the root stage share every stage across the lanes."""
+    all fall in the root stage share every stage across the lanes.
+
+    After each call `run.allocated` holds, per stage, its executor's
+    `allocated` sizes and how many times the stage ran: once, or once a
+    lane after the lanes split."""
     if not len(stages) == len(cap_plans) >= 1:
         raise ValueError("one capacity plan per stage")
     filter_vars = tuple(filter_vars)
@@ -1169,6 +1190,7 @@ def make_chain_executor(
         out = fns[-1](cols, stage_mults, filter_consts)
         nes.append(out[-2])
         ncs.append(out[-1])
+        run.allocated = tuple((fn.allocated, 1) for fn in fns)
         return out[:-2] + (tuple(nes), tuple(ncs))
 
     def lane_of(out, b: int):
@@ -1189,8 +1211,10 @@ def make_chain_executor(
         lanes = filter_consts.shape[0]
         envs = [(dict(rel_data), {})]  # one shared, or one per lane once split
         nes, ncs = [], []
+        runs = []  # per stage: one run for every lane, or one per lane once split
         for i, ((name, plan), fn) in enumerate(zip(stages, fns)):
             split = len(envs) > 1
+            runs.append(len(envs))
             outs = []
             for b, (cols, stage_mults) in enumerate(envs):
                 fc = None
@@ -1222,6 +1246,7 @@ def make_chain_executor(
                 torch.stack([p[1] for p in per]),
                 torch.stack([p[2] for p in per]),
             )
+        run.allocated = tuple((fn.allocated, r) for fn, r in zip(fns, runs))
         return root + (tuple(nes), tuple(ncs))
 
     return run
@@ -1472,6 +1497,26 @@ class AdaptiveExecutor:
         growth follows the max over lanes."""
         return need.max(axis=0) if need.ndim == 2 else need
 
+    @staticmethod
+    def _count_lanes(allocated, needs_e, needs_c) -> None:
+        """Add one run's frontier buffers to TRACE's lane counters: each
+        buffer's lanes (an expansion's capacity, a compaction's target) to
+        `lanes_allocated`, the live ones among them (its need, at most its
+        size) to `lanes_live`. allocated: per stage, (per-node sizes, runs)
+        as the chain executor reports it; a stage run once for all lanes
+        of a batch reads its lane-independent first need row, a stage run
+        once per lane each lane's row."""
+        live = total = 0
+        for ((sizes_e, sizes_c), runs), ne, nc in zip(allocated, needs_e, needs_c):
+            for sizes, need in ((sizes_e, ne), (sizes_c, nc)):
+                if not sizes:
+                    continue
+                for row in need.reshape(-1, len(sizes))[:runs].tolist():
+                    live += sum(min(n, c) for n, c in zip(row, sizes))
+                total += runs * sum(sizes)
+        TRACE.lanes_live += live
+        TRACE.lanes_allocated += total
+
     def _check_quota(self, chain, s: int, i: int, need: int, per_lane: np.ndarray) -> None:
         from repro_torch.core.capacity import CapacityQuotaError, _round_block
 
@@ -1509,7 +1554,8 @@ class AdaptiveExecutor:
         for _ in range(self.max_retries + 1):
             fn = self._fn(chain)
             faults.fire("dispatch")
-            out = fn(rel_data, filter_consts) if self.filter_vars else fn(rel_data)
+            with TRACE.exec_enqueue:
+                out = fn(rel_data, filter_consts) if self.filter_vars else fn(rel_data)
             # ONE device-to-host copy for the control plane: the per-stage
             # need vectors (per lane when batched) drive host-side
             # overflow/tighten decisions. Results stay on the device until
@@ -1522,6 +1568,7 @@ class AdaptiveExecutor:
             if not self.batch:
                 parts = [p[0] for p in parts]
             needs_e, needs_c = parts[: len(sizes)], parts[len(sizes):]
+            self._count_lanes(fn.allocated, needs_e, needs_c)
             grown = chain
             for s, (cp, ne_l, nc_l) in enumerate(zip(chain.stages, needs_e, needs_c)):
                 ne, nc = self._reduced(ne_l), self._reduced(nc_l)
@@ -1637,17 +1684,18 @@ class AdaptiveExecutor:
         runs are skipped by the caller (lane counts depend on the constants),
         and nodes with no recordable prefix spec or a zero need (the
         factorized-count shortcut never expands) are skipped here."""
-        if self._last_needs is None:
-            return
-        if self._feedback_specs is None:
-            self._feedback_specs = self._node_feedback_specs()
-        for per_node, needs in zip(self._feedback_specs, self._last_needs):
-            for spec, n in zip(per_node, needs):
-                if spec is None or int(n) <= 0:
-                    continue
-                relcache.FEEDBACK.record(
-                    [(relations[a], vs) for a, vs in spec], int(n)
-                )
+        with TRACE.exec_feedback:
+            if self._last_needs is None:
+                return
+            if self._feedback_specs is None:
+                self._feedback_specs = self._node_feedback_specs()
+            for per_node, needs in zip(self._feedback_specs, self._last_needs):
+                for spec, n in zip(per_node, needs):
+                    if spec is None or int(n) <= 0:
+                        continue
+                    relcache.FEEDBACK.record(
+                        [(relations[a], vs) for a, vs in spec], int(n)
+                    )
 
     def run_relations(self, relations, *, reuse_tries: bool = True, filter_consts=None):
         """Host relations in, host results out — the warm path. Device
@@ -1665,36 +1713,38 @@ class AdaptiveExecutor:
         (see _record_feedback), except kill-mode filtered runs, whose lane
         counts depend on the constants (mask-mode batched runs keep the
         unfiltered layout)."""
-        data = {}
-        for a in sorted(_base_aliases(self.stages)):
-            rel = relations[a]
-            if reuse_tries:
-                lo = self._alias_lops.get(a)
-                if lo is not None:
-                    data[a] = TRIE_CACHE.get(
-                        rel, device_columns(rel, self.device), lo, budget=self.budget
+        with TRACE.exec_run:
+            data = {}
+            with TRACE.exec_tries:
+                for a in sorted(_base_aliases(self.stages)):
+                    rel = relations[a]
+                    if reuse_tries:
+                        lo = self._alias_lops.get(a)
+                        if lo is not None:
+                            data[a] = TRIE_CACHE.get(
+                                rel, device_columns(rel, self.device), lo, budget=self.budget
+                            )
+                            continue
+                    data[a] = device_columns(relcache.live_relation(rel), self.device)
+            out = self(data, filter_consts)
+            if not self.filter_vars or self.batch is not None:
+                self._record_feedback(relations)
+            if self.agg == "count":
+                if self.batch:  # the dispatch's one result read-back
+                    return TRANSFERS.to_host(out, "counts").astype(np.int64)
+                return int(TRANSFERS.to_host(out, "count"))
+            if self.batch:
+                bound, valid, mult = out
+                cols = {v: TRANSFERS.to_host(a, f"rows {v}") for v, a in bound.items()}
+                valid, mult = TRANSFERS.to_host(valid, "valid"), TRANSFERS.to_host(mult, "mult")
+                return [
+                    (
+                        {v: a[b][valid[b]].astype(np.int64) for v, a in cols.items()},
+                        mult[b][valid[b]].astype(np.int64),
                     )
-                    continue
-            data[a] = device_columns(relcache.live_relation(rel), self.device)
-        out = self(data, filter_consts)
-        if not self.filter_vars or self.batch is not None:
-            self._record_feedback(relations)
-        if self.agg == "count":
-            if self.batch:  # the dispatch's one result read-back
-                return TRANSFERS.to_host(out, "counts").astype(np.int64)
-            return int(TRANSFERS.to_host(out, "count"))
-        if self.batch:
-            bound, valid, mult = out
-            cols = {v: TRANSFERS.to_host(a, f"rows {v}") for v, a in bound.items()}
-            valid, mult = TRANSFERS.to_host(valid, "valid"), TRANSFERS.to_host(mult, "mult")
-            return [
-                (
-                    {v: a[b][valid[b]].astype(np.int64) for v, a in cols.items()},
-                    mult[b][valid[b]].astype(np.int64),
-                )
-                for b in range(self.batch)
-            ]
-        return materialize_compiled(*out)
+                    for b in range(self.batch)
+                ]
+            return materialize_compiled(*out)
 
 
 def materialize_compiled(bound, valid, mult):

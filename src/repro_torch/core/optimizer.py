@@ -55,6 +55,7 @@ import numpy as np
 
 from repro_torch.core import relcache
 from repro_torch.core.plan import BinaryPlan, FreeJoinPlan, linear
+from repro_torch.core.trace import TRACE
 from repro_torch.relational.relation import Relation
 from repro_torch.relational.schema import Atom, Query
 
@@ -103,7 +104,8 @@ class Stats:
             col = rel.columns[var]
 
             def compute():
-                return float(max(1, len(np.unique(col))))
+                with TRACE.plan_distinct:
+                    return float(max(1, len(np.unique(col))))
 
             if self._cached:
                 from repro_torch.core import relcache
@@ -512,29 +514,30 @@ class JoinOrderOptimizer:
         stats: Stats | None = None,
         bad: bool = False,
     ) -> BinaryPlan | Atom:
-        if stats is None:
-            stats = Stats(relations)
-        if bad or self.level <= 0 or len(query.atoms) < 3:
-            # greedy fallback: level 0, the Sec 5.4 hijack, and queries too
-            # small for the enumeration to beat the heuristic
-            return optimize(query, relations, bad, stats=stats)
-        key = self._choice_key(query, relations)
-        version = self.feedback.version if self.feedback is not None else 0
-        hit = _CHOICE_CACHE.get(key)
-        if hit is not None and (self.level < 2 or hit[1] == version):
-            # level < 2 PINS the first choice for the life of the relations:
-            # one run's measurements cover only the incumbent's own prefixes,
-            # so re-ranking against unmeasured challengers is information-
-            # asymmetric (the measured plan always looks worse than the
-            # fantasy ones) and would flip-flop plans — and every flip is a
-            # recompile. Level >= 2 opts into adaptive re-planning, guarded
-            # by adopt_margin hysteresis below.
-            return hit[0]
-        chosen = self._choose_uncached(query, relations, stats, incumbent=hit)
-        _CHOICE_CACHE.put(
-            key, (chosen, version), [relations[a.alias] for a in query.atoms]
-        )
-        return chosen
+        with TRACE.plan_choose:
+            if stats is None:
+                stats = Stats(relations)
+            if bad or self.level <= 0 or len(query.atoms) < 3:
+                # greedy fallback: level 0, the Sec 5.4 hijack, and queries too
+                # small for the enumeration to beat the heuristic
+                return optimize(query, relations, bad, stats=stats)
+            key = self._choice_key(query, relations)
+            version = self.feedback.version if self.feedback is not None else 0
+            hit = _CHOICE_CACHE.get(key)
+            if hit is not None and (self.level < 2 or hit[1] == version):
+                # level < 2 PINS the first choice for the life of the relations:
+                # one run's measurements cover only the incumbent's own prefixes,
+                # so re-ranking against unmeasured challengers is information-
+                # asymmetric (the measured plan always looks worse than the
+                # fantasy ones) and would flip-flop plans — and every flip is a
+                # recompile. Level >= 2 opts into adaptive re-planning, guarded
+                # by adopt_margin hysteresis below.
+                return hit[0]
+            chosen = self._choose_uncached(query, relations, stats, incumbent=hit)
+            _CHOICE_CACHE.put(
+                key, (chosen, version), [relations[a.alias] for a in query.atoms]
+            )
+            return chosen
 
     # ---- internals ----------------------------------------------------
     def _choice_key(self, query: Query, relations) -> tuple:

@@ -9,7 +9,8 @@ host synchronizations of these copies, and on the CPU the same calls pass
 through the same counter, so a CPU run counts what the card would. The
 launch audit (repro_torch/analysis/launch_audit.py) records a warm call's
 crossings here, and on the card holds its count to the one
-torch.cuda.set_sync_debug_mode reports.
+torch.cuda.set_sync_debug_mode reports. Each crossing is also an
+`exec.sync` span (core/trace.py): its time is the host's wait.
 """
 from __future__ import annotations
 
@@ -17,6 +18,8 @@ from contextlib import contextmanager
 
 import numpy as np
 import torch
+
+from repro_torch.core.trace import TRACE
 
 
 class Transfers:
@@ -50,22 +53,24 @@ class Transfers:
 
     def to_host(self, t: torch.Tensor, what: str) -> np.ndarray:
         """One blocking read-back of `t` as a host numpy array."""
-        self._note("read", what, t.numel())
-        self._depth += 1
-        try:
-            return t.cpu().numpy()
-        finally:
-            self._depth -= 1
+        with TRACE.exec_sync("read", what):
+            self._note("read", what, t.numel())
+            self._depth += 1
+            try:
+                return t.cpu().numpy()
+            finally:
+                self._depth -= 1
 
     def to_device(self, host, device, what: str) -> torch.Tensor:
         """One blocking upload of the host array `host` to `device`."""
-        host = np.ascontiguousarray(host)
-        self._note("upload", what, host.size)
-        self._depth += 1
-        try:
-            return torch.as_tensor(host).to(device)
-        finally:
-            self._depth -= 1
+        with TRACE.exec_sync("upload", what):
+            host = np.ascontiguousarray(host)
+            self._note("upload", what, host.size)
+            self._depth += 1
+            try:
+                return torch.as_tensor(host).to(device)
+            finally:
+                self._depth -= 1
 
 
 TRANSFERS = Transfers()

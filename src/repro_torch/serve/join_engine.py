@@ -36,7 +36,8 @@ group is served by ONE unbatched call whose result every member shares.
 
 The engine also keeps a per-template exponential moving average of the
 measured dispatch time (`cost_ema_us`, updated on every dispatch, cold
-ones included, decayed by later warm dispatches). A dispatch's time ends
+ones included, decayed by later warm dispatches): the duration of the
+dispatch's `serve.dispatch` span (core/trace.py). A dispatch's time ends
 at the read-back of its results, which synchronizes the stream, so it is
 the card's time, not the enqueue time. Admission consults it beside the
 planned cells: planning says what a template *should* cost, the EMA says
@@ -80,6 +81,7 @@ from repro_torch.core import api, faults, relcache
 from repro_torch.core.api import ExecOptions, _acquire_runner, free_join
 from repro_torch.core.capacity import CapacityQuotaError
 from repro_torch.core.plan import BinaryPlan
+from repro_torch.core.trace import TRACE
 from repro_torch.relational.relation import Relation
 from repro_torch.relational.schema import Query
 from repro_torch.serve.admission import AdmissionController, AdmissionError
@@ -220,23 +222,24 @@ class JoinServeEngine:
         templates each get every k-th dispatch regardless of queue depth."""
         if not self.queue:
             return []
-        templates: list[PlanTemplate] = []
-        for r in self.queue:
-            if r.template not in templates:
-                templates.append(r.template)
-        chosen = templates[self._rr % len(templates)]
-        self._rr += 1
-        group: list[JoinRequest] = []
-        rest: deque[JoinRequest] = deque()
-        while self.queue:
-            r = self.queue.popleft()
-            if r.template == chosen and len(group) < self.slots:
-                group.append(r)
-            else:
-                rest.append(r)
-        self.queue = rest
-        self._serve_group(chosen, group)
-        return group
+        with TRACE.serve_step:
+            templates: list[PlanTemplate] = []
+            for r in self.queue:
+                if r.template not in templates:
+                    templates.append(r.template)
+            chosen = templates[self._rr % len(templates)]
+            self._rr += 1
+            group: list[JoinRequest] = []
+            rest: deque[JoinRequest] = deque()
+            while self.queue:
+                r = self.queue.popleft()
+                if r.template == chosen and len(group) < self.slots:
+                    group.append(r)
+                else:
+                    rest.append(r)
+            self.queue = rest
+            self._serve_group(chosen, group)
+            return group
 
     def run(self, max_steps: int = 10_000) -> list[JoinRequest]:
         """Drain the queue; returns every retired request in retire order."""
@@ -252,7 +255,10 @@ class JoinServeEngine:
         req.error = err
         req.done = True
 
-    def _observe_cost(self, key, dt_us: float) -> None:
+    def _observe_cost(self, key) -> None:
+        """Fold the last `serve.dispatch` span's duration into the
+        template's dispatch-cost average."""
+        dt_us = TRACE.serve_dispatch.last_ns / 1e3
         ema = self.cost_ema_us.get(key)
         self.cost_ema_us[key] = (
             dt_us if ema is None else (1 - self.ema_alpha) * ema + self.ema_alpha * dt_us
@@ -353,9 +359,9 @@ class JoinServeEngine:
 
     def _dispatch_filterless(self, t, runner, rels, live) -> None:
         # nothing varies per lane: one unbatched call answers everyone
-        t0 = time.perf_counter()
-        out = runner.run_relations(rels, reuse_tries=True)
-        self._observe_cost(t.key, (time.perf_counter() - t0) * 1e6)
+        with TRACE.serve_dispatch([r.rid for r in live]):
+            out = runner.run_relations(rels, reuse_tries=True)
+        self._observe_cost(t.key)
         self.dispatches += 1
         for req in live:
             req.result, req.done = out, True
@@ -379,11 +385,11 @@ class JoinServeEngine:
             consts = np.broadcast_to(lanes[0].consts, (width, len(t.filter_vars))).copy()
             for i, req in enumerate(lanes):
                 consts[i] = req.consts  # dead slots keep lane 0's constants
-            t0 = time.perf_counter()
             try:
-                out = runner.run_relations(rels, reuse_tries=True, filter_consts=consts)
+                with TRACE.serve_dispatch([r.rid for r in lanes]):
+                    out = runner.run_relations(rels, reuse_tries=True, filter_consts=consts)
             except CapacityQuotaError as e:
-                self._observe_cost(t.key, (time.perf_counter() - t0) * 1e6)
+                self._observe_cost(t.key)
                 self.dispatches += 1
                 victim = (
                     lanes[e.lane]
@@ -414,7 +420,7 @@ class JoinServeEngine:
                 evictions += 1
                 self._backoff(evictions)
                 continue
-            self._observe_cost(t.key, (time.perf_counter() - t0) * 1e6)
+            self._observe_cost(t.key)
             self.dispatches += 1
             for i, req in enumerate(lanes):
                 req.result = int(out[i]) if t.agg == "count" else out[i]
@@ -447,16 +453,16 @@ class JoinServeEngine:
                 for req in list(pending):
                     if req.done:
                         continue
-                    t0 = time.perf_counter()
                     try:
-                        out = runner.run_relations(
-                            rels, reuse_tries=True, filter_consts=req.consts
-                        )
+                        with TRACE.serve_dispatch([req.rid]):
+                            out = runner.run_relations(
+                                rels, reuse_tries=True, filter_consts=req.consts
+                            )
                     except CapacityQuotaError as e:
                         self.admission.reject_runtime(req.tenant)
                         self._reject(req, e)
                         continue
-                    self._observe_cost(t.key, (time.perf_counter() - t0) * 1e6)
+                    self._observe_cost(t.key)
                     self.dispatches += 1
                     req.result = int(out) if t.agg == "count" else out
                     req.done = True

@@ -633,3 +633,49 @@ def test_checkpoint_restores_on_card(cuda, tmp_path):
                     [*fresh[0].parameters(), *fresh[1]["m"].parameters(),
                      *fresh[1]["v"].parameters()]):
         assert b.is_cuda and torch.equal(a, b)
+
+
+def test_spans_share_the_profilers_clock(cuda, rng):
+    """Under a CPU + CUDA profiler the port's spans lie on the device
+    trace's clock: each launch of the port's own kernels (K1-K3) in a warm
+    triangle count lies inside an `exec.node` range, and the `needs`
+    read-back's `exec.sync` range ends after the device operation before
+    its copy, and after the copy."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    e = rng.integers(0, 5000, (200_000, 2))
+    rels = {"R": Relation("R", {"x": e[:, 0], "y": e[:, 1]}),
+            "S": Relation("S", {"y": e[:, 0], "z": e[:, 1]}),
+            "T": Relation("T", {"z": e[:, 0], "x": e[:, 1]})}
+    q, opts = triangle_query(), ExecOptions(device="cuda")
+    want = compiled_free_join(q, rels, options=opts)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        assert compiled_free_join(q, rels, options=opts) == want
+        torch.cuda.synchronize()
+    events = list(prof.profiler.kineto_results.events())
+    host = [x for x in events if x.device_type() != DeviceType.CUDA]
+    device = [x for x in events if x.device_type() == DeviceType.CUDA]
+
+    def interval(x):
+        return x.start_ns(), x.start_ns() + x.duration_ns()
+
+    nodes = [interval(x) for x in host if x.name() == "exec.node"]
+    launches = {x.correlation_id(): x for x in host if x.name() == "cudaLaunchKernel"}
+    ours = [x for x in device
+            if any(k in x.name() for k in ("probe_rows", "probe_sector", "csr_expand", "compact"))]
+    assert nodes and ours
+    for k in ours:
+        s, t = interval(launches[k.correlation_id()])
+        assert any(a <= s and t <= b for a, b in nodes), k.name()
+    needs = [x for x in host if x.name() == "exec.sync" and x.kwinputs().get("what") == "needs"]
+    assert len(needs) == 1
+    a, b = interval(needs[0])
+    copies = [x for x in device if x.name().startswith("Memcpy DtoH") and a <= x.start_ns() <= b]
+    assert copies
+    copy = copies[0]
+    before = [x for x in device if interval(x)[1] <= copy.start_ns()]
+    assert before and max(interval(x)[1] for x in before) <= b
+    assert interval(copy)[1] <= b
