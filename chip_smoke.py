@@ -41,16 +41,23 @@ Phases (any failure raises, and the script exits non-zero):
      with a = c; 16 tenants spell each with their own aliases and atom
      order; 256 requests alternate between the templates, constants
      Zipf(1.3)-skewed over the persons with friends (hubs recur). The
-     trace is drained through the engine (mask-mode batched dispatches)
-     and serially (one kill-mode compiled_free_join(filters=) a request),
+     trace is drained through the engine (batched dispatches, each on
+     seeded lanes or in mask mode as the engine chooses) and serially (one kill-mode compiled_free_join(filters=) a request),
      each once to warm and once timed; every result equals an independent
      numpy oracle (2-hop: the sum of out-degree(y) over c's rows;
      triangle: sorted-set intersection) and the two drains equal each
      other. Per drain: queries/s, p50/p99 latency, dispatches, K1-K5
-     launches, peak MiB; degraded and faults_absorbed must be 0. For one
-     warm batched dispatch of each template beside one warm unfiltered
-     call: host syncs, host ms and device ms; for the triangle's, its
-     device idle share and host functions (torch.profiler, cProfile).
+     launches, peak MiB, seeded dispatches; degraded and faults_absorbed
+     must be 0. For each template, one warm batched dispatch of its first
+     16 requests through the engine (whichever mode it chooses, and the
+     rows of knows their constants select), the same 16 requests as one
+     warm mask-mode dispatch (the runner acquired with batch = 16, which
+     bushy and quota-armed groups also take), 16 light requests (persons
+     with fewer than rows / 16 friends) through the engine, which must
+     take seeded lanes, and one warm unfiltered call: host syncs, host
+     ms, device ms and K1-K4 launches, every count held against the
+     oracle; for the engine's triangle dispatch, its device idle share
+     and host functions (torch.profiler, cProfile).
      Then the stage replay's
      4-chain as a batched template (slots = 8) with 8 constants on e,
      bound only in the T-U stage (the per-lane path), each count held
@@ -94,10 +101,11 @@ Phases (any failure raises, and the script exits non-zero):
      own milliseconds (lint_chain timed alone on the same chain). q1
      planned with no plan tree under JoinOrderOptimizer(debug_lint=True):
      every finalist lints clean (finalists, lint ms). The launch audit
-     (trace_runner + audit_runner) of four warm runners: q1 count, q1
+     (trace_runner + audit_runner) of five warm runners: q1 count, q1
      agg=None, the star count and the serving phase's batched q1 template
-     at 16 lanes (acquired as JoinServeEngine acquires it), each call also
-     counted by sync_count; no ERROR, and the audit's host syncs equal
+     at 16 lanes, in mask mode and on seeded lanes (acquired as
+     JoinServeEngine acquires it for 16 requests of the person with the
+     fewest friends), each call also counted by sync_count; no ERROR, and the audit's host syncs equal
      sync_count's; per runner syncs, K1-K4 launches, tensor ops per
      schedule op and the upload inventory. A JoinServeEngine(slots = 16)
      rejects a query with an unbound head variable and one with an
@@ -867,7 +875,10 @@ def serving_path(device: str, seed: int, workloads, sync, slots: int = 16):
     import torch
 
     from repro_torch.core import compiled_free_join
+    from repro_torch.core.api import _acquire_runner, _runner_cache
+    from repro_torch.core.trace import TRACE
     from repro_torch.serve import JoinServeEngine
+    from repro_torch.serve.templates import canonicalize
 
     q1, q1_rels, _star, _star_rels, opts = workloads
     mods = kernel_modules()
@@ -894,6 +905,7 @@ def serving_path(device: str, seed: int, workloads, sync, slots: int = 16):
         cold_s = time.perf_counter() - t
         before = {k: m.launches for k, m in mods.items()}
         torch.cuda.reset_peak_memory_stats()
+        seeded_before = TRACE.seeded_dispatches
         t = time.perf_counter()
         if mode == "batched":
             lat, out, eng, per_template = drain_batched(trace, opts, slots)
@@ -915,6 +927,7 @@ def serving_path(device: str, seed: int, workloads, sync, slots: int = 16):
         if mode == "batched":
             r.update(degraded=eng.degraded, faults_absorbed=eng.faults_absorbed,
                      deadline_rejected=eng.deadline_rejected,
+                     seeded_dispatches=TRACE.seeded_dispatches - seeded_before,
                      dispatch_ms_median={k: float(np.median(v)) * 1e3
                                          for k, v in per_template.items()})
             if sum(eng.degraded.values()) or eng.faults_absorbed:
@@ -927,29 +940,75 @@ def serving_path(device: str, seed: int, workloads, sync, slots: int = 16):
 
     # one warm batched dispatch of each template against one warm
     # unfiltered call of the same query: host syncs, host ms, device ms
-    def one_dispatch(name):
+    out_deg = np.bincount(q1_rels["K1"].columns["a"])
+    n_rows = q1_rels["K1"].num_rows
+
+    def first(name, light=False):
+        """The trace indices of the template's first `slots` requests; with
+        light, of those whose person has fewer than n_rows / slots friends,
+        so that together they select fewer rows of knows than it holds
+        (the engine's test for seeded lanes)."""
+        return [i for i, x in enumerate(trace) if x[1] == name
+                and (not light or out_deg[x[4]["a"]] * slots < n_rows)][:slots]
+
+    def one_dispatch(picks):
         eng = JoinServeEngine(slots=slots, options=opts)
-        picks = [x for x in trace if x[1] == name][:slots]
 
         def step():
-            for tenant, _n, q, rels, filters in picks:
-                eng.submit(q, rels, filters, tenant=tenant)
+            reqs = [eng.submit(*trace[i][2:], tenant=trace[i][0]) for i in picks]
             eng.step()
+            return [r.result for r in reqs]
         return step
+
+    def mask_dispatch(picks):
+        """The same requests as one mask-mode dispatch of the template's
+        batch = `slots` runner."""
+        spelled = [canonicalize(*trace[i][2:], options=opts) for i in picks]
+        t = spelled[0][0]
+        runner, rels = _acquire_runner(
+            t.query, t.relations, t.plan_tree, agg="count", options=opts,
+            filter_vars=t.filter_vars, batch=slots,
+            cache=_runner_cache.scoped("join-templates"))[:2]
+        consts = np.stack([c for _t, c in spelled])
+        return lambda: [int(x) for x in runner.run_relations(rels, reuse_tries=True,
+                                                             filter_consts=consts)]
+
+    def took_seeded_lanes(step, picks, what):
+        before = TRACE.seeded_dispatches
+        if step() != [want[i] for i in picks]:
+            fail(f"serving {what}: a one-dispatch result differs from the oracle")
+        return TRACE.seeded_dispatches > before
+
+    def launches(fn):
+        before = {k: m.launches for k, m in mods.items()}
+        fn()
+        return {k: m.launches - before[k] for k, m in mods.items() if k in JOIN_KERNELS}
+
+    def measured(step, picks):
+        return {"selected_rows": int(sum(out_deg[trace[i][4]["a"]] for i in picks)),
+                "host_syncs": sync_count(step),
+                "device_ms": device_ms(step, iters=5, warmup=1),
+                "host_ms": wall_ms(step, iters=5, warmup=1),
+                "launches": launches(step)}
 
     with capture_largest() as seen:
         for name in ("fof", "q1"):
-            one_dispatch(name)()
+            one_dispatch(first(name))()
     _tenant, _name, q_fof, fof_rels, _filters = trace[0]  # requests start with fof
     for name, q, rels in (("q1", q1, q1_rels), ("fof", q_fof, fof_rels)):
-        step = one_dispatch(name)
+        picks, light = first(name), first(name, light=True)
+        step, mask, seeded = one_dispatch(picks), mask_dispatch(picks), one_dispatch(light)
+        if took_seeded_lanes(mask, picks, f"{name} mask mode"):
+            fail(f"serving {name}: the mask-mode runner took seeded lanes")
+        if not took_seeded_lanes(seeded, light, f"{name} light"):
+            fail(f"serving {name}: {slots} light requests did not take seeded lanes")
         unfiltered = lambda q=q, rels=rels: compiled_free_join(q, rels, agg="count",
                                                                options=opts)
         unfiltered()
         rec[f"{name}_one_dispatch"] = {
-            "host_syncs": sync_count(step),
-            "device_ms": device_ms(step, iters=5, warmup=1),
-            "host_ms": wall_ms(step, iters=5, warmup=1),
+            "seeded": took_seeded_lanes(step, picks, name), **measured(step, picks),
+            "mask_mode": measured(mask, picks),
+            "seeded_lanes": measured(seeded, light),
             "unfiltered_call_device_ms": device_ms(unfiltered, iters=5, warmup=1),
             "unfiltered_call_host_ms": wall_ms(unfiltered, iters=5, warmup=1),
             "unfiltered_call_host_syncs": sync_count(unfiltered)}
@@ -964,7 +1023,7 @@ def serving_path(device: str, seed: int, workloads, sync, slots: int = 16):
 
     # where one warm batched q1 dispatch's time goes: device busy time and
     # idle share (torch.profiler), host functions by own time (cProfile)
-    step = one_dispatch("q1")
+    step = one_dispatch(first("q1"))
     step()
     rec["q1_one_dispatch"]["profile"] = profile_run(timed(step), timed(step), top=6)
 
@@ -1241,22 +1300,32 @@ def analysis_path(device: str, seed: int, workloads, ref, sync):
                          "choose_ms": choose_ms, "tree": str(tree)}
     del fresh
 
-    # the launch audit of four warm runners, each call also counted by
+    # the launch audit of five warm runners, each call also counted by
     # torch.cuda.set_sync_debug_mode
     t_q1 = canonicalize(q1, q1_rels, {"a": 0}, options=opts)[0]
+    _fof, triangle_at, persons = point_oracles(q1_rels["K1"])
+    seeds = np.full((16, 1), persons[-1], np.int32)  # a person with the fewest friends
     runners = {
         "q1 count": _acquire_runner(q1, q1_rels, None, agg="count", options=opts)[0],
         "q1 agg=None": _acquire_runner(q1, q1_rels, None, agg=None, options=opts)[0],
         "star count": _acquire_runner(star, star_rels, None, agg="count", options=opts)[0],
-        # the serving phase's batched q1 template, acquired as JoinServeEngine does
+        # the serving phase's batched q1 template in mask mode (what bushy
+        # and quota-armed groups take) and on seeded lanes (as
+        # JoinServeEngine acquires it)
         "q1 batched x16": _acquire_runner(
             t_q1.query, t_q1.relations, t_q1.plan_tree, agg="count", options=opts,
             filter_vars=t_q1.filter_vars, batch=16,
             cache=_runner_cache.scoped("join-templates"))[0],
+        "q1 seeded x16": _acquire_runner(
+            t_q1.query, t_q1.relations, t_q1.plan_tree, agg="count", options=opts,
+            filter_vars=t_q1.filter_vars, batch=16, seeds=seeds,
+            cache=_runner_cache.scoped("join-templates"))[0],
     }
+    if not runners["q1 seeded x16"].plan.seeded:
+        fail("analysis: 16 requests for a person with few friends took mask mode")
     for name, runner in runners.items():
         rels = t_q1.relations if runner.batch else (star_rels if "star" in name else q1_rels)
-        consts = np.zeros((16, 1), np.int32) if runner.batch else None
+        consts = seeds if runner.batch else None
         runner.run_relations(rels, filter_consts=consts)  # warm: capacities settle
         box = []
         syncs = sync_count(lambda r=runner, rl=rels, c=consts: box.append(
@@ -1278,7 +1347,6 @@ def analysis_path(device: str, seed: int, workloads, ref, sync):
                  f"set_sync_debug_mode {syncs}")
 
     # the submit-time lint: two invalid requests rejected, a valid one served
-    _fof, triangle_at, persons = point_oracles(q1_rels["K1"])
     c = int(persons[0])
     eng = JoinServeEngine(slots=16, options=opts)
     bad = eng.submit(Query(q1.atoms, head=(*q1.head, "__alien")), q1_rels, {"a": c},

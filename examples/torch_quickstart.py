@@ -226,9 +226,12 @@ def main(argv=None) -> dict:
     # constants. JoinServeEngine canonicalizes each request into a plan
     # template (alias alpha-renaming + constant lifting), so all of them
     # share ONE runner, and co-template requests are answered by ONE
-    # mask-mode dispatch over the shared cached tries: a (B, cap) lane mask,
-    # the constants matrix the only per-lane input, and the expansions,
-    # probes and compactions run once for all lanes. Admission quotas (see
+    # dispatch over the shared cached tries, the constants matrix the only
+    # per-lane input. The filter binds x in the plan's first node and the
+    # constants select few of the rows, so the dispatch runs on seeded
+    # lanes: each lane's join starts from its own constant, and its work
+    # follows the rows that constant selects.
+    # Admission quotas (see
     # src/repro_torch/serve/README.md) reject oversized queries instead of
     # letting them stall the batch with a grow/rebuild storm.
     print("\nserving loop (plan templates + batched probes)")

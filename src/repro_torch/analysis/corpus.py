@@ -24,6 +24,10 @@ to exercise a distinct structural regime:
                        capacity planning).
 * ``star-batched``   — the same template batched over 4 lanes
                        (mask-mode filters, (B, F) constants).
+* ``star-seeded``    — the same template on seeded lanes, as the serving
+                       engine acquires it (its first node probes the
+                       constants; the port's own case: the reference
+                       has no seeded runner).
 
 Every case draws its relations with the reference corpus's own
 `np.random.default_rng` calls in the same order
@@ -54,6 +58,7 @@ class Case:
     relations: dict[str, Relation] = field(hash=False)
     filters: dict[str, int] | None = field(default=None, hash=False)
     batch: int | None = None
+    seeded: bool = False  # seeded lanes, where the plan takes them
     agg: str | None = "count"
     options: ExecOptions = ExecOptions()
     # applied to the runner's relations AFTER a first warm run, so the
@@ -212,6 +217,9 @@ def corpus_cases(seed: int = 0) -> list[Case]:
         )
     )
 
+    # and on seeded lanes: each lane's join starts from its constant
+    cases.append(Case("star-seeded", star_q, star_rels, filters={"y": 7}, batch=4, seeded=True))
+
     return cases
 
 
@@ -227,6 +235,7 @@ def build_runner(case: Case, *, device="cuda"):
         options=replace(case.options, device=device),
         filter_vars=case.filter_vars,
         batch=case.batch,
+        seeds=case.filter_consts if case.seeded else None,
     )
     if case.mutate is not None:
         # warm run builds the cold tries, then the mutation goes through

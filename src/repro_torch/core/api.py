@@ -43,6 +43,7 @@ from repro_torch.core.plan import (
     FreeJoinPlan,
     decompose_tree,
     gj_plan,
+    seed_plan,
     stage_plans,
     var_order_from_fj,
 )
@@ -153,7 +154,7 @@ def _govern_runner(cache, key, runner) -> None:
     runner._govern_token = token
 
 
-def _runner_key(stages, rels, base, agg, options, filter_vars, batch, max_capacity):
+def _runner_key(stages, rels, base, agg, options, filter_vars, batch, max_capacity, seeded):
     return (
         # str(plan) renders the nodes but not the output projection, and
         # agg=None executors bind exactly plan.query.head — so the head is
@@ -164,6 +165,7 @@ def _runner_key(stages, rels, base, agg, options, filter_vars, batch, max_capaci
         filter_vars,
         batch,
         max_capacity,
+        seeded,
         tuple(sorted((a, id(rels[a])) for a in base)),
     )
 
@@ -314,6 +316,45 @@ def free_join(
     )
 
 
+def _key_counts(rel, vs: tuple[str, ...]):
+    """The distinct values of `rel`'s columns `vs` (sorted; one void
+    scalar a row when there are several columns) and their row counts,
+    memoized on the relation and its first column object."""
+
+    def compute():
+        if len(vs) == 1:
+            return np.unique(rel.columns[vs[0]], return_counts=True)
+        return np.unique(_as_rows(np.stack([rel.columns[v] for v in vs], axis=1)),
+                         return_counts=True)
+
+    return relcache.memo(relcache.REGISTRY, rel, "key_counts", vs, rel.columns[vs[0]], compute)
+
+
+def _as_rows(a: np.ndarray) -> np.ndarray:
+    """(n, F) integers -> n void scalars, equal where the rows are."""
+    a = np.ascontiguousarray(a, dtype=np.int64)
+    return a.view(np.dtype((np.void, 8 * a.shape[1]))).ravel()
+
+
+def _seeds_select_fewer_rows(plan: FreeJoinPlan, rels, filter_vars, seeds) -> bool:
+    """Does the plan's first cover bind every filter var (seed_plan's
+    condition), and do a batch's constants (n, F, in filter_vars order),
+    duplicates counted, select fewer rows of its relation than it holds?
+    A seeded lane expands the rows its constants select, and a mask-mode
+    dispatch scans all of that relation's rows once for every lane, so
+    below that total seeded lanes do less work, and at or above it (hubs,
+    repeated constants) mask mode does."""
+    cover = next(sa for sa in plan.covers(0) if sa.vars)
+    rel = rels[cover.alias]
+    if not set(filter_vars) <= set(cover.vars) or not rel.num_rows:
+        return False
+    keys, counts = _key_counts(rel, tuple(filter_vars))
+    seeds = np.asarray(seeds)
+    q = seeds[:, 0] if len(filter_vars) == 1 else _as_rows(seeds)
+    at = np.minimum(np.searchsorted(keys, q), len(keys) - 1)
+    return int(counts[at][keys[at] == q].sum()) < rel.num_rows
+
+
 def _acquire_runner(
     query: Query,
     relations: dict[str, Relation],
@@ -324,6 +365,7 @@ def _acquire_runner(
     filter_vars: tuple[str, ...] = (),
     batch: int | None = None,
     max_capacity: int | None = None,
+    seeds=None,
     cache=None,
 ):
     """One planning pass -> one (possibly cached) AdaptiveExecutor.
@@ -338,8 +380,16 @@ def _acquire_runner(
     FilteredStats for the selected slice); `batch` builds the mask-mode
     multi-lane variant (planned on plain stats: its frontier layout is the
     unfiltered one); `max_capacity` arms the per-node growth quota
-    (admission control). `cache` defaults to the verbatim runner cache;
-    the serving engine passes its template-scoped namespace.
+    (admission control). `seeds`, the (n, F) constants of the dispatch
+    to come, asks a batched runner for seeded lanes
+    (compiled.SeededExecutor over plan.seed_plan, capacities from
+    FilteredStats for all `batch` lanes), which it gets when the plan is
+    one stage whose first node's cover binds every filter var, no quota
+    is armed, and the seeds select fewer rows of that cover's relation
+    than it holds (_seeds_select_fewer_rows); otherwise it is the
+    mask-mode runner. `cache`
+    defaults to the verbatim runner cache; the serving engine passes its
+    template-scoped namespace.
 
     Returns (runner, rels, cacheable, plan_tree): rels is the relation dict
     the runner should execute over (the hybrid baseline materializes its
@@ -348,7 +398,7 @@ def _acquire_runner(
     the binary plan actually chosen (the caller's, or the optimizer's)."""
     with TRACE.plan_acquire:
         from repro_torch.core.capacity import plan_chain_capacities
-        from repro_torch.core.compiled import AdaptiveExecutor, _base_aliases
+        from repro_torch.core.compiled import AdaptiveExecutor, SeededExecutor, _base_aliases
 
         cache = _runner_cache if cache is None else cache
         rels = dict(relations)
@@ -380,15 +430,26 @@ def _acquire_runner(
                 rels[name] = Relation(name, materialize(bound, mult, fj.query.head))
             stages = stages[-1:]
         base = sorted(_base_aliases(stages))
-        key = _runner_key(stages, rels, base, agg, options, filter_vars, batch, max_capacity)
+        seeded = bool(
+            seeds is not None and batch and filter_vars and max_capacity is None
+            and len(stages) == 1
+            and _seeds_select_fewer_rows(stages[0][1], rels, filter_vars, seeds)
+        )
+        key = _runner_key(
+            stages, rels, base, agg, options, filter_vars, batch, max_capacity, seeded
+        )
         runner = cache.get(key) if cacheable else None
         if runner is None:
+            seed = seed_plan(stages[0][1], filter_vars) if seeded else None
+            if seed is not None:  # the seeded plan runs in the template's place
+                stages = [(stages[0][0], seed)]
             pstats = stats
-            if filter_vars and batch is None:
+            if filter_vars and (batch is None or seed is not None):
                 # kill-mode filters prune the frontier as they apply, so
                 # capacity-plan for the selected slice, not the whole relation;
                 # this depends only on WHICH vars are filtered, never on the
                 # constants, so every query of the template shares the plan.
+                # Seeded lanes follow the selection too, one query a lane.
                 # Batched (mask-mode) runners keep the unfiltered frontier
                 # layout, shared across lanes, so plain stats size them right
                 pstats = FilteredStats(
@@ -403,6 +464,7 @@ def _acquire_runner(
                     safety=options.safety,
                     compact_threshold=options.compact_threshold,
                     feedback=relcache.FEEDBACK,
+                    lanes=batch if seed is not None else 1,
                 )
             if options.verify:
                 # full pre-build verification: plan structure, schedules,
@@ -416,17 +478,28 @@ def _acquire_runner(
             if len(stages) == 1:  # classic single-stage surface (plain CapacityPlan)
                 cap_plan = cap_plan.stages[0]
             plan_arg = stages[0][1] if len(stages) == 1 else tuple(stages)
-            runner = AdaptiveExecutor(
-                plan_arg,
-                cap_plan,
-                device=options.device,
-                budget=options.budget,
-                agg=agg,
-                tighten=True,
-                filter_vars=filter_vars,
-                batch=batch,
-                max_capacity=max_capacity,
-            )
+            if seed is not None:
+                runner = SeededExecutor(
+                    seed,
+                    cap_plan,
+                    device=options.device,
+                    budget=options.budget,
+                    agg=agg,
+                    filter_vars=filter_vars,
+                    batch=batch,
+                )
+            else:
+                runner = AdaptiveExecutor(
+                    plan_arg,
+                    cap_plan,
+                    device=options.device,
+                    budget=options.budget,
+                    agg=agg,
+                    tighten=True,
+                    filter_vars=filter_vars,
+                    batch=batch,
+                    max_capacity=max_capacity,
+                )
             if cacheable:
                 cache.put(key, runner, [rels[a] for a in base])
                 _govern_runner(cache, key, runner)

@@ -88,12 +88,16 @@ def node_agm_bounds(schedule, sizes: dict[str, float]) -> list[float]:
     then the node's probes extend the prefix for the next node. Shared by
     the capacity planner's sizing walk and the static verifier
     (repro_torch.analysis.planlint), so "capacity exceeds the AGM cap"
-    means the same thing in both places."""
+    means the same thing in both places. A seeded plan's first node (no
+    cover) is bounded by its one lane."""
     prefix: dict[str, tuple[str, ...]] = {a: () for a in sizes}
     out: list[float] = []
     for _k, cover, probes in schedule:
-        prefix[cover.alias] = prefix[cover.alias] + tuple(cover.vars)
-        out.append(agm_bound(prefix, sizes))
+        if cover is None:
+            out.append(1.0)
+        else:
+            prefix[cover.alias] = prefix[cover.alias] + tuple(cover.vars)
+            out.append(agm_bound(prefix, sizes))
         for sa in probes:
             prefix[sa.alias] = prefix[sa.alias] + tuple(sa.vars)
     return out
@@ -286,6 +290,7 @@ def plan_capacities(
     max_capacity: int = 1 << 22,
     compact_output: bool = False,
     feedback=None,
+    lanes: int = 1,
 ) -> CapacityPlan:
     """Derive a CapacityPlan for `plan` (see module doc).
 
@@ -306,7 +311,11 @@ def plan_capacities(
     feedback: a relcache.CardFeedback — prefix estimates are replaced by
     measured cardinalities from prior runs where recorded (see
     optimizer.prefix_card), so a warm query's buffers are sized from
-    measurements instead of independence assumptions."""
+    measurements instead of independence assumptions.
+    lanes: the seeded-lanes width. A seeded plan's estimates are one
+    query's (stats is a FilteredStats); every estimate and AGM bound is
+    taken `lanes` times, so the buffers hold a full batch, and the first
+    node (no cover, no expansion) gets `lanes`, the seeded frontier."""
     from repro_torch.core.compiled import _static_schedule  # deferred: avoids a cycle
 
     if stats is None:
@@ -318,14 +327,23 @@ def plan_capacities(
         a: float(max(1, stats.size(a)))
         for a in {sa.alias for node in plan.nodes for sa in node}
     }
-    agms = node_agm_bounds(schedule.entries, sizes)
+    agms = [lanes * a for a in node_agm_bounds(schedule.entries, sizes)]
     prefix: dict[str, tuple[str, ...]] = {a: () for a in sizes}
     caps: list[int] = []
     compact: list[int | None] = []
     compact_probe: list[int] = []
     for (_k, cover, probes), est, bound in zip(schedule.entries, estimates, agms):
+        if cover is None:  # the seeded lanes themselves
+            for sa in probes:
+                prefix[sa.alias] = prefix[sa.alias] + tuple(sa.vars)
+            caps.append(lanes)
+            compact.append(None)
+            compact_probe.append(len(probes))
+            continue
         prefix[cover.alias] = prefix[cover.alias] + tuple(cover.vars)
-        cap = _round_block(min(max(1.0, est.expand) * safety, bound, float(max_capacity)), block)
+        cap = _round_block(
+            min(max(1.0, est.expand) * safety * lanes, bound, float(max_capacity)), block
+        )
         last = est is estimates[-1] and not compact_output
         # earliest probe after which the predicted live fraction collapses:
         # compacting right there lets every remaining probe (and all later
@@ -337,8 +355,10 @@ def plan_capacities(
             more_work = (j + 1 < len(probes)) or not last
             if target is not None or not more_work:
                 continue
-            a_est = est.probe_after[j]
-            t = _round_block(min(max(1.0, a_est) * safety, agm_bound(prefix, sizes)), block)
+            a_est = est.probe_after[j] * lanes
+            t = _round_block(
+                min(max(1.0, a_est) * safety, lanes * agm_bound(prefix, sizes)), block
+            )
             if a_est < compact_threshold * cap and t < cap:
                 target, cp_idx = t, j + 1
         if compact_output and est is estimates[-1] and target is None:
@@ -348,7 +368,9 @@ def plan_capacities(
             # No safety factor here: a too-small target is recovered by one
             # compact-overflow retry that jumps to the *measured* live count,
             # so steady state converges to a tight output buffer.
-            t = _round_block(min(max(1.0, est.after), agm_bound(prefix, sizes)), block)
+            t = _round_block(
+                min(max(1.0, est.after * lanes), lanes * agm_bound(prefix, sizes)), block
+            )
             if t < cap:
                 target, cp_idx = t, len(probes)
         caps.append(cap)
@@ -374,6 +396,7 @@ def plan_chain_capacities(
     compact_threshold: float = 0.25,
     max_capacity: int = 1 << 22,
     feedback=None,
+    lanes: int = 1,
 ) -> ChainCapacityPlan:
     """Capacity-plan a whole stage chain in one pass (no materialization).
 
@@ -385,7 +408,8 @@ def plan_chain_capacities(
     next stage plans, so stage output estimates feed every downstream
     prefix estimate and AGM bound. Non-root stages plan with
     compact_output=True so their output buffers (the next trie's static
-    width) get squeezed when the estimates say most lanes are dead."""
+    width) get squeezed when the estimates say most lanes are dead.
+    `lanes` sizes a seeded plan for that many lanes (plan_capacities)."""
     sstats = StageStats(stats)
     cps = []
     for i, (name, plan) in enumerate(stages):
@@ -400,6 +424,7 @@ def plan_chain_capacities(
                 max_capacity=max_capacity,
                 compact_output=not root,
                 feedback=feedback,
+                lanes=lanes,
             )
         )
         if not root:

@@ -75,7 +75,11 @@ matrix, each filter comparison ANDs into a (B, cap) lane mask gathered
 along with the frontier, and only the terminal fold reads it, so the
 expansions (K2), probes (K1) and compactions (K3) run once for all B
 queries. A chain whose filter falls in a non-root stage runs every later
-stage once per lane, on that lane's weighted stage buffer. Two more
+stage once per lane, on that lane's weighted stage buffer. A point query
+whose plan binds every filter var in its first node's cover runs on
+SEEDED LANES instead (SeededExecutor over plan.seed_plan): the frontier
+starts as the B lanes, each bound to its own constants, so each lane's
+work follows the rows its constants select. Two more
 serving hooks live here: every cached trie and every growth of a cached
 runner is accounted with the device-memory governor (core/membudget.py),
 and AdaptiveExecutor carries the fault-injection sites of core/faults.py
@@ -135,7 +139,9 @@ class StaticSchedule:
 
 def _static_schedule(plan: FreeJoinPlan) -> StaticSchedule:
     """Walk the plan once, statically: per node pick the cover (first listed
-    — plans arrive factored), mark each atom level probe/iterate."""
+    — plans arrive factored), mark each atom level probe/iterate. A seeded
+    plan's first node has no cover (None): its vars are the lanes'
+    constants, and every subatom of it is probed."""
     parts = plan.partitions()
     consumed: dict[str, int] = {a: 0 for a in parts}
     probed: dict[str, list[bool]] = {a: [False] * len(parts[a]) for a in parts}
@@ -144,14 +150,18 @@ def _static_schedule(plan: FreeJoinPlan) -> StaticSchedule:
         subs = [sa for sa in node if sa.vars]
         if not subs:
             continue
-        covers = [sa for sa in plan.covers(k) if sa.vars and any(sa is s for s in subs)]
-        cover = covers[0]
+        if plan.seeded and k == 0:
+            cover = None
+        else:
+            covers = [sa for sa in plan.covers(k) if sa.vars and any(sa is s for s in subs)]
+            cover = covers[0]
         probes = tuple(sa for sa in subs if sa is not cover)
         schedule.append((k, cover, probes))
         for sa in probes:
             probed[sa.alias][consumed[sa.alias]] = True
             consumed[sa.alias] += 1
-        consumed[cover.alias] += 1
+        if cover is not None:
+            consumed[cover.alias] += 1
     level_ops = {a: _LevelOps(tuple(parts[a]), tuple(probed[a])) for a in parts}
     return StaticSchedule(entries=tuple(schedule), level_ops=level_ops)
 
@@ -882,6 +892,18 @@ def make_executor(
       (B,) int64, or bound/valid/mult (B, cap), and the need vectors
       (B, num_executed_nodes), a lane-independent tensor broadcast along
       it.
+    * seeded lanes (a seeded plan, plan.seed_plan: a batch of B point
+      queries): filter_consts is (B, F), and the frontier starts as the B
+      lanes, lane i holding row i's constants as the bound values of the
+      filter vars and its lane id, which is gathered along with the
+      frontier. The first node only probes (K1) from those values, so a
+      constant that binds no row kills its lane there, and every later
+      expansion follows the rows each lane selected, not the relation. The
+      call takes `live`: lanes from `live` on start dead. Outputs keep the
+      mask-mode contract: counts (B,), a segment sum by lane id; agg=None
+      gives (B, cap) bound/valid/mult with valid[i] the lanes of lane i;
+      needs (B, num_executed_nodes), one row broadcast. The first node's
+      need is the live lane count.
 
     After each call `fn.allocated` is (expansion sizes, compaction sizes),
     per executed node the lanes its buffers took (0 where it made none:
@@ -899,6 +921,9 @@ def make_executor(
     level_ops = schedule.level_ops
     schedule = schedule.entries
     nsched = len(schedule)
+    seeded = nsched > 0 and schedule[0][1] is None
+    if seeded and set(filter_idx) != {v for sa in schedule[0][2] for v in sa.vars}:
+        raise ValueError("a seeded plan's first node holds exactly its filter vars")
     capacities = tuple(int(c) for c in capacities[:nsched])
     compact_to = tuple(compact_to[:nsched]) if compact_to is not None else (None,) * nsched
     compact_probe = (
@@ -923,10 +948,11 @@ def make_executor(
         rel_data: dict[str, object],
         rel_mults: dict[str, torch.Tensor] | None = None,
         filter_consts: torch.Tensor | None = None,
+        live: int | None = None,
     ):
         if filter_idx and filter_consts is None:
             raise ValueError("this executor was built with filters; pass filter_consts")
-        batched = not filter_kill and filter_consts is not None
+        batched = not seeded and not filter_kill and filter_consts is not None
         mults = rel_mults or {}
         tries = {
             a: as_trie(rel_data[a], level_ops[a], mults.get(a)) for a in level_ops
@@ -936,11 +962,20 @@ def make_executor(
         # feeds the frontier layout; created at the first filter comparison
         fvalid = None
         depth = {a: 0 for a in level_ops}
-        # frontier
-        cap = 1
-        valid = torch.ones(1, dtype=torch.bool, device=device)
-        mult = torch.ones(1, dtype=_I32, device=device)
+        # frontier: one empty row, or the seeded lanes with their lane ids;
+        # a slot past a buffer's count holds `no_lane`, so the ids never
+        # decrease along the frontier (see _sum_by_lane)
+        lane = no_lane = None
         bound: dict[str, torch.Tensor] = {}
+        if seeded:
+            cap = no_lane = filter_consts.shape[0]
+            lane = torch.arange(cap, dtype=_I32, device=device)
+            valid = lane < (cap if live is None else live)
+            bound = {v: filter_consts[:, j] for v, j in filter_idx.items()}
+        else:
+            cap = 1
+            valid = torch.ones(1, dtype=torch.bool, device=device)
+        mult = torch.ones(cap, dtype=_I32, device=device)
         gid: dict[str, torch.Tensor] = {}
         zero = torch.zeros((), dtype=_I32, device=device)
         need_expand = [zero] * nsched
@@ -950,11 +985,12 @@ def make_executor(
         alloc_expand = [0] * nsched
         alloc_compact = [0] * nsched
 
-        def squeeze(bound, gid, mult, valid, fvalid, cap, c_compact, i):
+        def squeeze(bound, gid, mult, valid, fvalid, lane, cap, c_compact, i):
             """Pack the valid lanes into a fresh c_compact-wide frontier
-            (on `valid` alone: the mask-mode filter mask rides along)."""
-            src, live = ops.compact_indices(valid, c_compact)
-            need_compact[i] = live
+            (on `valid` alone: the mask-mode filter mask and the seeded
+            lane ids ride along)."""
+            src, n_live = ops.compact_indices(valid, c_compact)
+            need_compact[i] = n_live
             alloc_compact[i] = c_compact
             srcc = src.clamp(0, cap - 1)
             bound = {v: a[srcc] for v, a in bound.items()}
@@ -962,68 +998,79 @@ def make_executor(
             mult = mult[srcc]
             if fvalid is not None:
                 fvalid = fvalid[:, srcc]
-            valid = torch.arange(c_compact, dtype=_I32, device=device) < live
-            return bound, gid, mult, valid, fvalid, c_compact
+            if lane is not None:
+                lane = torch.where(src >= 0, lane[srcc], no_lane)
+            valid = torch.arange(c_compact, dtype=_I32, device=device) < n_live
+            return bound, gid, mult, valid, fvalid, lane, c_compact
 
         for i, ((k, cover, probes), c_next, c_compact, cp_idx) in enumerate(
             zip(schedule, capacities, compact_to, compact_probe)
         ):
             with TRACE.exec_node(i):
-                t = tries[cover.alias]
-                d = depth[cover.alias]
-                g = gid.get(cover.alias, torch.zeros(cap, dtype=_I32, device=device))
-                last = d == t.L - 1
-                # a filtered var can never take the factorized-count shortcut:
-                # its comparison against the constant needs the bound values
-                needed = _needed_later_static(plan, k, probes, agg) | set(filter_idx)
-                if agg == "count" and not (set(cover.vars) & needed) and last and not (
-                    set(cover.vars) & set(bound)
-                ):
-                    # factorized count (static decision)
-                    mult = mult * torch.where(valid, t.rows_under(d, g), 1)
-                    gid.pop(cover.alias, None)
-                    depth[cover.alias] = t.L
+                if cover is None:
+                    # the seed node: its vars hold the lanes' constants, so
+                    # it expands nothing and only probes; its need is the
+                    # live lane count
+                    need_expand[i] = valid.sum(dtype=_I32)
+                    alloc_expand[i] = cap
                 else:
-                    base, counts = t.iter_counts(d, g, last)
-                    counts = torch.where(valid, counts, 0)
-                    fr, member, vnew, total = ops.expand_counted(base, counts, c_next)
-                    need_expand[i] = total
-                    alloc_expand[i] = c_next
-                    frc = fr.clamp(0, cap - 1)
-                    memc = member.clamp(0, max(t.n - 1, 0))
-                    bound = {v: a[frc] for v, a in bound.items()}
-                    gid = {a: arr[frc] for a, arr in gid.items()}
-                    mult = mult[frc]
-                    if fvalid is not None:
-                        fvalid = fvalid[:, frc]
-                    valid = vnew
-                    cap = c_next
-                    cols, new_g = t.bind_iter(d, memc, last)
-                    for v, cvals in zip(cover.vars, cols):
-                        if v in bound:  # semijoin on re-bound vars
-                            valid = valid & (bound[v] == cvals)
-                        else:
-                            bound[v] = cvals
-                            if v in filter_idx and filter_kill:  # constant
-                                # selection the moment the var is bound: dead
-                                # lanes never reach a probe
-                                valid = valid & (cvals == filter_consts[filter_idx[v]])
-                            elif v in filter_idx:  # layout-neutral lane mask
-                                hit = cvals[None, :] == filter_consts[:, filter_idx[v], None]
-                                fvalid = hit if fvalid is None else fvalid & hit
-                    depth[cover.alias] = d + 1
-                    if new_g is None or depth[cover.alias] == t.L:
-                        # last-level iteration enumerates physical rows, so bag
-                        # multiplicity is already accounted for — except on a
-                        # weighted (stage-output) trie, whose per-row mult folds
-                        # in here and whose mult-0 pad rows die on the spot.
-                        rm = t.iter_mult(memc)
-                        if rm is not None:
-                            mult = mult * torch.where(valid, rm, 1)
-                            valid = valid & (rm > 0)
+                    t = tries[cover.alias]
+                    d = depth[cover.alias]
+                    g = gid.get(cover.alias, torch.zeros(cap, dtype=_I32, device=device))
+                    last = d == t.L - 1
+                    # a filtered var can never take the factorized-count shortcut:
+                    # its comparison against the constant needs the bound values
+                    needed = _needed_later_static(plan, k, probes, agg) | set(filter_idx)
+                    if agg == "count" and not (set(cover.vars) & needed) and last and not (
+                        set(cover.vars) & set(bound)
+                    ):
+                        # factorized count (static decision)
+                        mult = mult * torch.where(valid, t.rows_under(d, g), 1)
                         gid.pop(cover.alias, None)
+                        depth[cover.alias] = t.L
                     else:
-                        gid[cover.alias] = new_g
+                        base, counts = t.iter_counts(d, g, last)
+                        counts = torch.where(valid, counts, 0)
+                        fr, member, vnew, total = ops.expand_counted(base, counts, c_next)
+                        need_expand[i] = total
+                        alloc_expand[i] = c_next
+                        frc = fr.clamp(0, cap - 1)
+                        memc = member.clamp(0, max(t.n - 1, 0))
+                        bound = {v: a[frc] for v, a in bound.items()}
+                        gid = {a: arr[frc] for a, arr in gid.items()}
+                        mult = mult[frc]
+                        if fvalid is not None:
+                            fvalid = fvalid[:, frc]
+                        if lane is not None:
+                            lane = torch.where(fr >= 0, lane[frc], no_lane)
+                        valid = vnew
+                        cap = c_next
+                        cols, new_g = t.bind_iter(d, memc, last)
+                        for v, cvals in zip(cover.vars, cols):
+                            if v in bound:  # semijoin on re-bound vars
+                                valid = valid & (bound[v] == cvals)
+                            else:
+                                bound[v] = cvals
+                                if v in filter_idx and filter_kill:  # constant
+                                    # selection the moment the var is bound: dead
+                                    # lanes never reach a probe
+                                    valid = valid & (cvals == filter_consts[filter_idx[v]])
+                                elif v in filter_idx:  # layout-neutral lane mask
+                                    hit = cvals[None, :] == filter_consts[:, filter_idx[v], None]
+                                    fvalid = hit if fvalid is None else fvalid & hit
+                        depth[cover.alias] = d + 1
+                        if new_g is None or depth[cover.alias] == t.L:
+                            # last-level iteration enumerates physical rows, so bag
+                            # multiplicity is already accounted for — except on a
+                            # weighted (stage-output) trie, whose per-row mult folds
+                            # in here and whose mult-0 pad rows die on the spot.
+                            rm = t.iter_mult(memc)
+                            if rm is not None:
+                                mult = mult * torch.where(valid, rm, 1)
+                                valid = valid & (rm > 0)
+                            gid.pop(cover.alias, None)
+                        else:
+                            gid[cover.alias] = new_g
                 compacted = False
                 for j, sa in enumerate(probes):
                     tp = tries[sa.alias]
@@ -1043,20 +1090,29 @@ def make_executor(
                             and c_compact < cap):
                         # squeeze dead lanes out mid-node: the remaining probes
                         # (and all later nodes) run at c_compact
-                        bound, gid, mult, valid, fvalid, cap = squeeze(
-                            bound, gid, mult, valid, fvalid, cap, c_compact, i
+                        bound, gid, mult, valid, fvalid, lane, cap = squeeze(
+                            bound, gid, mult, valid, fvalid, lane, cap, c_compact, i
                         )
                         compacted = True
                 if c_compact is not None and not compacted and c_compact < cap:
                     # probe-less node (or unreached compact point): after-node
-                    bound, gid, mult, valid, fvalid, cap = squeeze(
-                        bound, gid, mult, valid, fvalid, cap, c_compact, i
+                    bound, gid, mult, valid, fvalid, lane, cap = squeeze(
+                        bound, gid, mult, valid, fvalid, lane, cap, c_compact, i
                     )
         run.allocated = (alloc_expand, alloc_compact)
         ne = torch.stack(need_expand) if nsched else torch.zeros(0, dtype=_I32, device=device)
         nc = torch.stack(need_compact) if nsched else torch.zeros(0, dtype=_I32, device=device)
         if batched:
             return _fold_lanes(agg, bound, valid, mult, fvalid, ne, nc, filter_consts.shape[0])
+        if seeded:  # the fold by lane id
+            lanes = filter_consts.shape[0]
+            if agg == "count":
+                w = torch.where(valid, mult, 0).to(torch.int64)
+                counts = _sum_by_lane(w, lane, lanes)
+                return counts, ne.expand(lanes, -1), nc.expand(lanes, -1)
+            ids = torch.arange(lanes, dtype=_I32, device=device)
+            mine = lane[None, :] == ids[:, None]  # (B, cap): lane i's lanes
+            return _fold_lanes(agg, bound, valid, mult, mine, ne, nc, lanes)
         if agg == "count":
             return torch.where(valid, mult, 0).sum(dtype=torch.int64), ne, nc
         # lanes that went through a weighted trie's probe path can survive
@@ -1065,6 +1121,21 @@ def make_executor(
         return bound, valid, mult, ne, nc
 
     return run
+
+
+def _sum_by_lane(values, lane, lanes: int) -> torch.Tensor:
+    """Per-lane sums of a seeded frontier's values (0 where not valid). The
+    lane ids never decrease along the frontier: the seed lists the lanes in
+    order, an expansion emits each source's rows in its place, a compaction
+    keeps the order, and the slots past a buffer's count hold `lanes`. So
+    each lane's values are one run, summed as the difference of prefix
+    sums at the run's ends. (An index_add_ into `lanes` slots serialises
+    every row on a few atomics: 1.9 ms of a 2.9-ms q1 dispatch of 16 hub
+    lanes on an H100.)"""
+    ids = torch.arange(lanes, dtype=lane.dtype, device=lane.device)
+    ends = torch.searchsorted(lane, ids, right=True)
+    prefix = torch.cat([values.new_zeros(1), torch.cumsum(values, 0)])
+    return torch.diff(prefix[ends], prepend=values.new_zeros(1))
 
 
 def _fold_lanes(agg, bound, valid, mult, fvalid, ne, nc, lanes: int):
@@ -1478,17 +1549,24 @@ class AdaptiveExecutor:
             # a new executor shape is made here: the injection point of
             # "compile_fail", on the same misses as the reference's compile
             faults.fire("compile")
-            self._cache[key] = make_chain_executor(
-                self.stages,
-                chain.stages,
-                budget=self.budget,
-                agg=self.agg,
-                filter_vars=self.filter_vars,
-                # batched runs use mask-mode filters so the frontier layout
-                # is shared across lanes; single queries keep kill mode
-                filter_kill=self.batch is None,
-            )
+            self._cache[key] = self._build(chain)
         return self._cache[key]
+
+    def _enqueue(self, fn, rel_data, filter_consts, live):
+        """One executor call; `live` is a batched call's request count."""
+        return fn(rel_data, filter_consts) if self.filter_vars else fn(rel_data)
+
+    def _build(self, chain):
+        return make_chain_executor(
+            self.stages,
+            chain.stages,
+            budget=self.budget,
+            agg=self.agg,
+            filter_vars=self.filter_vars,
+            # batched runs use mask-mode filters so the frontier layout
+            # is shared across lanes; single queries keep kill mode
+            filter_kill=self.batch is None,
+        )
 
     @staticmethod
     def _reduced(need: np.ndarray) -> np.ndarray:
@@ -1533,19 +1611,32 @@ class AdaptiveExecutor:
         """agg="count" -> () int64 count tensor; agg=None -> (bound, valid,
         mult). rel_data values are prebuilt StaticTries and/or raw column
         dicts (see make_executor). filter_consts: (F,) int32 in filter_vars
-        order, or (batch, F) for a batched runner, which returns (B,)
-        counts or (B, cap) bound/valid/mult."""
+        order, or (n, F), 1 <= n <= batch, for a batched runner, which
+        returns (batch,) counts or (batch, cap) bound/valid/mult, of which
+        the first n are the requests'."""
         from repro_torch.core.capacity import _round_block  # deferred: no cycle
 
+        live = None
         if self.filter_vars:
             if filter_consts is None:
                 raise ValueError("this runner's template has filters")
-            filter_consts = TRANSFERS.to_device(
-                np.asarray(filter_consts, dtype=np.int32), self.device, "filter constants"
-            )
-            want = (self.batch, len(self.filter_vars)) if self.batch else (len(self.filter_vars),)
-            if tuple(filter_consts.shape) != want:
-                raise ValueError(f"filter_consts must be {want}")
+            consts = np.asarray(filter_consts, dtype=np.int32)
+            width = len(self.filter_vars)
+            if self.batch:
+                if consts.ndim != 2 or consts.shape[1] != width or not 1 <= len(consts) <= self.batch:
+                    raise ValueError(
+                        f"filter_consts must be (n, {width}) with 1 <= n <= {self.batch}"
+                    )
+                # the slots past the live lanes repeat lane 0's constants: a
+                # mask-mode lane computes an answer no caller reads, a
+                # seeded lane starts dead
+                live = len(consts)
+                consts = np.concatenate(
+                    [consts, np.broadcast_to(consts[:1], (self.batch - live, width))]
+                )
+            elif consts.shape != (width,):
+                raise ValueError(f"filter_consts must be ({width},)")
+            filter_consts = TRANSFERS.to_device(consts, self.device, "filter constants")
         chain = self._as_chain(self.cap_plan)
         self.calls += 1
         tightened = False
@@ -1555,7 +1646,7 @@ class AdaptiveExecutor:
             fn = self._fn(chain)
             faults.fire("dispatch")
             with TRACE.exec_enqueue:
-                out = fn(rel_data, filter_consts) if self.filter_vars else fn(rel_data)
+                out = self._enqueue(fn, rel_data, filter_consts, live)
             # ONE device-to-host copy for the control plane: the per-stage
             # need vectors (per lane when batched) drive host-side
             # overflow/tighten decisions. Results stay on the device until
@@ -1745,6 +1836,64 @@ class AdaptiveExecutor:
                     for b in range(self.batch)
                 ]
             return materialize_compiled(*out)
+
+
+class SeededExecutor(AdaptiveExecutor):
+    """The served point query's runner: seeded lanes (see make_executor).
+
+    `plan` is a seeded plan (plan.seed_plan) and `cap_plan` its capacities
+    for all `batch` lanes (capacity.plan_capacities(lanes=batch)). A call
+    takes (n, F) constants, 1 <= n <= batch, as a mask-mode batch does:
+    lane i starts from row i's, the lanes from n on start dead, so a
+    one-request call does one request's work. Results and needs keep the
+    batched runner's contract ((batch,) counts, or (batch, cap)
+    bound/valid/mult; (batch, nodes) needs, one row), so the retry loop
+    above drives it as it drives a mask-mode batch. It differs
+    from one in three ways: capacities only grow (tightening below the
+    planned full batch would make batches of different sizes alternate
+    grow and shrink reruns), no growth quota is armed (the quota's
+    protocol is mask mode's), and nothing feeds the optimizer's measured
+    cardinalities (a seeded need follows its constants). Each call counts
+    one seeded dispatch in TRACE.seeded_dispatches."""
+
+    def __init__(self, plan, cap_plan, *, device="cuda", budget: int = 32,
+                 agg: str | None = "count", filter_vars: tuple[str, ...], batch: int):
+        if not plan.seeded:
+            raise ValueError("a SeededExecutor runs a seeded plan (plan.seed_plan)")
+        super().__init__(plan, cap_plan, device=device, budget=budget, agg=agg,
+                         filter_vars=filter_vars, batch=batch)
+
+    def frontier_nbytes(self, cap_plan=None) -> int:
+        """cells x 4 bytes x (bound vars + valid + mult + the lane id)."""
+        chain = self._as_chain(self.cap_plan if cap_plan is None else cap_plan)
+        width = len(tuple(self.plan.query.variables)) + 3
+        return sum(cp.cells() * 4 * width for cp in chain.stages)
+
+    def _build(self, chain):
+        (cp,) = chain.stages
+        fn = make_executor(
+            self.plan, cp.capacities, compact_to=cp.compact_to,
+            compact_probe=cp.compact_probe, budget=self.budget, agg=self.agg,
+            schedule=cp.schedule,
+            filters=tuple((v, i) for i, v in enumerate(self.filter_vars)),
+        )
+
+        def run(rel_data, filter_consts, live):  # the chain executor's contract
+            out = fn(rel_data, None, filter_consts, live=live)
+            run.allocated = ((fn.allocated, 1),)
+            return out[:-2] + ((out[-2],), (out[-1],))
+
+        return run
+
+    def _enqueue(self, fn, rel_data, filter_consts, live):
+        return fn(rel_data, filter_consts, live)
+
+    def _record_feedback(self, relations) -> None:
+        """Nothing to record: a seeded run's needs follow its constants."""
+
+    def __call__(self, rel_data: dict[str, object], filter_consts=None):
+        TRACE.seeded_dispatches += 1
+        return super().__call__(rel_data, filter_consts)
 
 
 def materialize_compiled(bound, valid, mult):

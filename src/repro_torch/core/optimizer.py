@@ -360,7 +360,8 @@ def estimate_prefixes(
     StaticSchedule across the whole planning pass; passing only `relations`
     keeps the standalone surface working (stats built here). `feedback`
     replaces individual prefix estimates with measured cardinalities from
-    prior runs where available (see prefix_card)."""
+    prior runs where available (see prefix_card). A seeded plan's first
+    node (no cover) expands nothing: its frontier is one lane a query."""
     from repro_torch.core.compiled import _static_schedule  # deferred: avoids a cycle
 
     if stats is None:
@@ -371,8 +372,11 @@ def estimate_prefixes(
     prefix: dict[str, tuple[str, ...]] = {a: () for a in aliases}
     out: list[NodeEstimate] = []
     for k, cover, probes in schedule.entries:
-        prefix[cover.alias] = prefix[cover.alias] + tuple(cover.vars)
-        expand = prefix_card(prefix, stats, feedback)
+        if cover is None:
+            expand = 1.0
+        else:
+            prefix[cover.alias] = prefix[cover.alias] + tuple(cover.vars)
+            expand = prefix_card(prefix, stats, feedback)
         cards = []
         for sa in probes:
             prefix[sa.alias] = prefix[sa.alias] + tuple(sa.vars)

@@ -5,6 +5,10 @@ A plan is a list of *nodes*; each node is a list of *subatoms* R(y).
 The nodes must partition every atom's variables (Def 3.5), and a valid plan
 (Def 3.7) requires (a) no two subatoms in one node share a relation and
 (b) each node has a cover: a subatom containing all vars new to that node.
+
+A *seeded* plan (`seed_plan`) serves a point query: its first node holds
+the filter variables, bound by the request's constants before the plan
+runs, so that node has no cover and only probes.
 """
 from __future__ import annotations
 
@@ -26,9 +30,12 @@ class Subatom:
 class FreeJoinPlan:
     query: Query
     nodes: list[list[Subatom]]
+    # node 0 holds vars bound by constants before the plan runs (seed_plan)
+    seeded: bool = False
 
     def __str__(self):
-        return "[" + ", ".join("[" + ", ".join(map(str, n)) + "]" for n in self.nodes) + "]"
+        body = "[" + ", ".join("[" + ", ".join(map(str, n)) + "]" for n in self.nodes) + "]"
+        return "seeded " + body if self.seeded else body
 
     # ---- derived info -------------------------------------------------
     def vs(self, k: int) -> set[str]:
@@ -76,7 +83,7 @@ class FreeJoinPlan:
             aliases = [sa.alias for sa in node]
             if len(set(aliases)) != len(aliases):
                 yield ("node-repeats-relation", k, f"node {k} repeats a relation: {node}")
-            if not self.covers(k):
+            if not (self.seeded and k == 0) and not self.covers(k):
                 yield (
                     "node-missing-cover",
                     k,
@@ -185,6 +192,43 @@ def factor(plan: FreeJoinPlan) -> FreeJoinPlan:
             else:
                 break  # conservative factoring
     out.nodes = [n for n in nodes if n]
+    out.validate()
+    return out
+
+
+def seed_plan(plan: FreeJoinPlan, filter_vars) -> FreeJoinPlan | None:
+    """The seeded plan of a point query whose `filter_vars` are bound by
+    constants, built from its template's plan (no new plan choice): every
+    atom whose first subatom holds a filter var has that subatom split,
+    the filter vars into a leading node, which probes them from the
+    constants, the rest where the subatom was. `t0(a,b)` becomes `t0(a)`,
+    probed, then `t0(b)`, iterated under the group the probe found.
+    Subatoms and nodes the split empties are dropped. None unless the
+    first node's cover binds every filter var."""
+    fv = set(filter_vars)
+    cover = next(sa for sa in plan.covers(0) if sa.vars)
+    if not fv or not fv <= set(cover.vars):
+        return None
+    first: dict[str, Subatom] = {}
+    for node in plan.nodes:
+        for sa in node:
+            if sa.vars:
+                first.setdefault(sa.alias, sa)
+    seed: list[Subatom] = []
+    nodes: list[list[Subatom]] = []
+    for node in plan.nodes:
+        kept = []
+        for sa in node:
+            held = tuple(v for v in sa.vars if v in fv)
+            if held and first[sa.alias] is sa:
+                seed.append(Subatom(sa.alias, held))
+                sa = Subatom(sa.alias, tuple(v for v in sa.vars if v not in fv))
+                if not sa.vars:
+                    continue
+            kept.append(sa)
+        if kept:
+            nodes.append(kept)
+    out = FreeJoinPlan(plan.query, [seed] + nodes, seeded=True)
     out.validate()
     return out
 

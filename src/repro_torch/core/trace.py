@@ -30,7 +30,10 @@ Two tiers, on the same spans:
 The tracer keeps no event list of its own: a profiler session's events
 are the timeline, and `idle_by_span` reads where the device idled from
 them. `lanes_live` and `lanes_allocated` count the frontier lanes the
-compiled executor filled and allocated (core/compiled.py).
+compiled executor filled and allocated (core/compiled.py);
+`seeded_dispatches` counts the calls of its seeded-lanes runner
+(compiled.SeededExecutor), so that over `serve.dispatch`'s count it is the
+share of the serving engine's dispatches that took seeded lanes.
 
 Totals are plain integers updated without a lock, as
 `core/transfers.TRANSFERS.syncs` is: a run driven from several threads at
@@ -163,6 +166,7 @@ class Tracer:
     def __init__(self):
         self.lanes_live = 0  # frontier lanes filled, every buffer of every run
         self.lanes_allocated = 0  # and allocated
+        self.seeded_dispatches = 0  # calls of a seeded-lanes runner
         self.spans: dict[str, Span] = {}
         for name, keys, owns in _SPECS:
             span = Span(name, keys, owns)

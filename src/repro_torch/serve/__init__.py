@@ -7,8 +7,9 @@
 * **JoinServeEngine** (join_engine.py) serves *join queries*: concurrent
   tenants' queries are canonicalized into plan templates
   (templates.canonicalize: alias alpha-renaming + constant lifting),
-  co-template requests are dispatched as one mask-mode batched probe over
-  shared cached tries, and admission control (admission.py) rejects
+  co-template requests are dispatched as one batched call over shared
+  cached tries (on seeded lanes for point queries, else in mask mode),
+  and admission control (admission.py) rejects
   quota-violating queries instead of letting them trigger growth storms.
   Recoverable faults walk a degradation ladder down to the eager engine
   on the same device.

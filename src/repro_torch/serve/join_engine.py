@@ -21,11 +21,18 @@ The pipeline per `step()`:
    and its `max_plan_cells` quota, and rejected with zero device work on
    violation.
 3. **Dispatch one batched probe.** Up to `slots` co-template requests run
-   as one mask-mode executor call over the shared cached tries: the int32
-   constants matrix (slots, F) is the only per-lane input, and the probe
-   pipeline (expansions K2, probes K1, compactions K3) runs once for all
-   lanes. Dead slots are padded with lane 0's constants (they compute a
-   duplicate answer that is simply not read).
+   as one executor call over the shared cached tries; the int32 constants
+   matrix (slots, F) is the only per-lane input. Where the template's plan
+   is one stage whose first node's cover binds every filter var, no
+   member carries a `max_node_capacity` quota, and the group's constants
+   select fewer rows of that cover's relation than it holds, the call
+   takes SEEDED LANES (compiled.SeededExecutor): each lane's join starts
+   from its own constants, so its work follows the rows they select, and
+   dead slots start dead. Otherwise it is a MASK-MODE call: the probe pipeline
+   (expansions K2, probes K1, compactions K3) runs once over the whole
+   unfiltered frontier for all lanes, each lane's filter a mask folded in
+   at the end, and dead slots are padded with lane 0's constants (they
+   compute a duplicate answer that is simply not read).
 4. **Evict on quota.** If the adaptive runner raises CapacityQuotaError,
    the named lane's request is rejected, its slot re-padded, and the
    remaining requests re-dispatched against the same executor:
@@ -307,6 +314,7 @@ class JoinServeEngine:
             filter_vars=t.filter_vars,
             batch=batch,
             max_capacity=self._group_capacity_quota(group),
+            seeds=None if batch is None else np.stack([r.consts for r in group[:batch]]),
             cache=self._cache,
         )
         return runner, rels
@@ -368,8 +376,8 @@ class JoinServeEngine:
             self.served += 1
 
     def _dispatch_batched(self, t, runner, rels, live, width: int, label=None) -> None:
-        """Serve `live` in chunks of `width` lanes (one mask-mode dispatch
-        each). CapacityQuotaError evicts the named lane, charges the
+        """Serve `live` in chunks of `width` lanes (one seeded or mask-mode
+        dispatch each). CapacityQuotaError evicts the named lane, charges the
         OFFENDER's retry budget, backs off, and re-dispatches the rest
         against the same executor; the pending set strictly shrinks every
         round, so the loop terminates structurally."""
@@ -382,9 +390,7 @@ class JoinServeEngine:
             if not pending:
                 return
             lanes = pending[:width]
-            consts = np.broadcast_to(lanes[0].consts, (width, len(t.filter_vars))).copy()
-            for i, req in enumerate(lanes):
-                consts[i] = req.consts  # dead slots keep lane 0's constants
+            consts = np.stack([req.consts for req in lanes])  # the runner fills dead slots
             try:
                 with TRACE.serve_dispatch([r.rid for r in lanes]):
                     out = runner.run_relations(rels, reuse_tries=True, filter_consts=consts)

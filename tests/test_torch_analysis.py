@@ -80,7 +80,10 @@ REF = SimpleNamespace(
 )
 BOTH = (PORT, REF)
 CASES = {P.name: {c.name: c for c in P.corpus.corpus_cases()} for P in BOTH}
-NAMES = sorted(CASES["port"])
+# the cases both corpora hold (the port's star-seeded has no reference
+# counterpart: the reference has no seeded runner), and every port case
+NAMES = sorted(CASES["port"].keys() & CASES["reference"].keys())
+PORT_NAMES = sorted(CASES["port"])
 
 
 def triples(rep):
@@ -488,7 +491,7 @@ def test_make_count_fn_matches_reference():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("name", PORT_NAMES)
 def test_audit_silent_on_corpus_runner(name):
     case = CASES["port"][name]
     rep = cli.check_case(case, device="cpu")

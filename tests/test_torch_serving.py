@@ -14,7 +14,12 @@ integers, so every comparison is exact:
   final capacity plan, and the lane a CapacityQuotaError names;
 * `JoinServeEngine` on the reference's serving cases: each request's
   result, error type and reason, `degraded_to`, and the engine's and the
-  admission controller's counters.
+  admission controller's counters;
+* seeded lanes (`SeededExecutor`, the port's point-query runner, which
+  the reference lacks) against the reference's vmapped mask-mode
+  executor and the eager oracle, the engine's choice between seeded
+  lanes and mask mode, and a seeded dispatch's lanes against the
+  relation's size.
 """
 import functools
 from types import SimpleNamespace
@@ -50,11 +55,20 @@ from repro_torch.core import (
     relcache,
     to_sorted_tuples,
 )
-from repro_torch.core import compiled
+from repro_torch.core import api, compiled
 from repro_torch.core.capacity import CapacityPlan, plan_capacities
 from repro_torch.core.capacity import plan_chain_capacities
 from repro_torch.core.optimizer import Stats
-from repro_torch.core.plan import BinaryPlan, binary2fj, factor, stage_plans
+from repro_torch.core.plan import (
+    BinaryPlan,
+    binary2fj,
+    factor,
+    linear,
+    seed_plan,
+    stage_plans,
+)
+from repro_torch.core.trace import TRACE
+from repro_torch.core.transfers import TRANSFERS
 from repro_torch.relational.relation import Relation
 from repro_torch.relational.schema import Atom, Query
 
@@ -378,6 +392,11 @@ def _cached_runners(kc):
     return [v[0] for v in kc._data.values()]
 
 
+def seeded(runner):
+    """Does this (port or reference) runner take seeded lanes?"""
+    return type(runner).__name__ == "SeededExecutor"
+
+
 def two_spellings_one_runner(P):
     q, rels = workload(P)
     kc = P.KeyedCache()
@@ -505,11 +524,19 @@ def measured_cost_admission(P):
     (t_key,) = eng.cost_ema_us
     assert eng.cost_ema_us[t_key] > 0
     (runner,) = _cached_runners(kc)
-    compiles = runner.compiles
+    compiles, calls = runner.compiles, runner.calls
     r1 = eng.submit(qa, ra, {"x": 2}, tenant="cheap")
     r2 = eng.submit(qa, ra, {"x": 3}, tenant="vip")
     eng.run()
-    assert runner.compiles == compiles
+    # the cost-rejected request reaches no runner: one call, r2's
+    assert runner.calls == calls + 1
+    if not seeded(runner):
+        # mask mode's layout does not depend on the constants: no new
+        # executor either
+        assert runner.compiles == compiles
+    else:
+        # a seeded runner may grow once, to r2's larger selection
+        assert runner.compiles <= compiles + 1
     assert [r0.result, r2.result] == [oracle(P, q, rels, {"x": c}) for c in (1, 3)]
     return record(P, q, [r0, r1, r2], eng)
 
@@ -600,3 +627,219 @@ def test_mask_path_runs_the_probe_pipeline_once(monkeypatch):
     assert got.tolist() == [compiled_free_join(q, rels, filters={var: int(c)}, options=CPU)
                             for c in consts[:, 0]]
     assert sum(got) <= want_total
+
+
+# ---- seeded lanes: the served point query's runner ------------------------
+
+PATH2 = (("R", ("x", "y")), ("S", ("y", "z")))
+
+
+def bag_rows(cols, mult):
+    """Rows as a sorted list of value tuples (variables in sorted order),
+    each repeated by its multiplicity."""
+    names = sorted(cols)
+    out = []
+    for i, m in enumerate(np.asarray(mult).tolist()):
+        out += [tuple(int(np.asarray(cols[v])[i]) for v in names)] * int(m)
+    return sorted(out)
+
+
+@pytest.mark.parametrize("agg", ["count", None])
+@pytest.mark.parametrize("atoms,filter_vars", [(TRIANGLE, ("x",)), (PATH2, ("x",)),
+                                               (TRIANGLE, ("x", "y"))],
+                         ids=["triangle-x", "path2-x", "triangle-xy"])
+def test_seeded_runner_matches_vmapped_reference(atoms, filter_vars, agg, rng):
+    """Seeded lanes answer each lane as the reference's mask-mode executor
+    under jax.vmap and the eager oracle do: per-lane counts, and agg=None
+    rows with their multiplicities. The constants hold one that binds no
+    row, a duplicate, and fewer live requests than slots; `x` is held by
+    two of the triangle's atoms."""
+    slots, n, dom = 8, 300, 10
+    cols = {a: {v: rng.integers(0, dom, n) for v in vs} for a, vs in atoms}
+    rels = {a: Relation(a, c) for a, c in cols.items()}
+    consts = np.array([[3, 1], [3, 1], [99, 99], [0, 4], [7, 2]], np.int32)[:, :len(filter_vars)]
+    q = Query([Atom(a, vs) for a, vs in atoms])
+    runner, *_ = api._acquire_runner(q, rels, linear(q.atoms), agg=agg, options=CPU,
+                                     filter_vars=filter_vars, batch=slots, seeds=consts)
+    assert isinstance(runner, compiled.SeededExecutor) and runner.plan.seeded
+    jq = JQuery([JAtom(a, vs) for a, vs in atoms])
+    jfj = J.factor(J.binary2fj(jq.atoms, jq))
+    assert str(factor(binary2fj(q.atoms, q))) == str(jfj)
+    jcp = jplan_capacities(jfj, {a: JRelation(a, c) for a, c in cols.items()}, block=128)
+    caps = tuple(1 << 14 for _ in jcp.capacities)  # room for the unfiltered frontier
+    jfn = jcompiled.make_executor(jfj, caps, compact_to=(None,) * len(caps), agg=agg,
+                                  filters=tuple((v, i) for i, v in enumerate(filter_vars)),
+                                  filter_kill=False)
+    jdata = {a: {v: jnp.asarray(c, jnp.int32) for v, c in cs.items()} for a, cs in cols.items()}
+    want = jax.device_get(jax.jit(jax.vmap(lambda c: jfn(jdata, None, c)))(jnp.asarray(consts)))
+    got = runner.run_relations(rels, filter_consts=consts)
+    assert len(got) == slots
+    for b, row in enumerate(consts):
+        filters = {v: int(c) for v, c in zip(filter_vars, row)}
+        eager = free_join(q, rels, agg=agg, filters=filters, device="cpu")
+        if agg == "count":
+            assert int(got[b]) == int(want[0][b]) == eager
+        else:
+            v = np.asarray(want[1][b])
+            ref = bag_rows({k: np.asarray(a[b])[v] for k, a in want[0].items()},
+                           np.asarray(want[2][b])[v])
+            assert bag_rows(*got[b]) == ref == bag_rows(*eager)
+    assert (got[1] == got[0]) if agg == "count" else bag_rows(*got[1]) == bag_rows(*got[0])
+    dead = got[len(consts):]  # slots past the live requests: nothing
+    if agg == "count":
+        assert got[2] == 0 and not dead.any()
+    else:
+        assert bag_rows(*got[2]) == [] and all(bag_rows(*d) == [] for d in dead)
+
+
+@pytest.mark.parametrize("agg", ["count", None])
+def test_seeded_lanes_ride_through_a_squeeze(agg, rng):
+    """A compaction carries each lane's id with its rows: the seeded
+    executor with squeezes forced after the node that probes S and after
+    the last node, and a dead last slot, answers each live lane as the
+    reference's vmapped mask-mode executor does. S holds half of R's `y`
+    values, so its probe kills rows inside each lane's run and the squeeze
+    moves the rest; the last squeeze leaves the fold a tail of empty
+    slots."""
+    cols = {a: {v: rng.integers(0, 5 if (a, v) == ("S", "y") else 10, 300) for v in vs}
+            for a, vs in TRIANGLE}
+    q = Query([Atom(a, vs) for a, vs in TRIANGLE])
+    jq = JQuery([JAtom(a, vs) for a, vs in TRIANGLE])
+    plan = seed_plan(factor(binary2fj(q.atoms, q)), ("x",))
+    assert len(compiled._static_schedule(plan)) == 3
+    caps, ct = (4, 1 << 14, 1 << 14), (None, 1 << 10, 1 << 12)
+    fn = compiled.make_executor(plan, caps, compact_to=ct, agg=agg, filters=(("x", 0),))
+    consts = np.array([[3], [99], [5], [7]], np.int32)
+    data = {a: {v: torch.as_tensor(c, dtype=torch.int32) for v, c in cs.items()}
+            for a, cs in cols.items()}
+    got = fn(data, None, torch.as_tensor(consts), live=3)
+    assert all(0 < int(got[-1][0, i]) <= ct[i] for i in (1, 2)), "the squeezes ran and fit"
+    jfj = J.factor(J.binary2fj(jq.atoms, jq))
+    jcaps = (1 << 14,) * len(jcompiled._static_schedule(jfj))
+    jfn = jcompiled.make_executor(jfj, jcaps, compact_to=(None,) * len(jcaps), agg=agg,
+                                  filters=(("x", 0),), filter_kill=False)
+    jdata = {a: {v: jnp.asarray(c, jnp.int32) for v, c in cs.items()} for a, cs in cols.items()}
+    want = jax.device_get(jax.vmap(lambda c: jfn(jdata, None, c))(jnp.asarray(consts[:3])))
+    if agg == "count":
+        assert got[0].tolist() == np.asarray(want[0]).tolist() + [0]
+    else:
+        for b in range(3):
+            assert lane_rows(got[0], got[1], got[2], b) == lane_rows(*want[:3], b)
+        assert not got[1][3].any()
+
+
+# the benchmark's served templates over one edge table E, each atom a view
+# of it: fof (a 2-hop) is K1 K2, q1 (the triangle) K1 K2 K3
+VIEWS = {"K1": ("a", "b"), "K2": ("b", "c"), "K3": ("c", "a")}
+
+
+def edge_views(P, src, dst):
+    return {a: P.Relation("E", dict(zip(vs, (src, dst)))) for a, vs in VIEWS.items()}
+
+
+def graph_query(P, views, aliases):
+    q = P.Query([P.Atom("E", VIEWS[a], a) for a in aliases])
+    return q, {a: views[a] for a in aliases}
+
+
+def test_engine_routes_point_queries_to_seeded_lanes():
+    """q1 and fof bind `a` in their first node's cover: seeded lanes. A
+    bushy template whose filter falls in a later stage, a group whose
+    member carries a max_node_capacity quota, and a group whose constants
+    (a hub, repeated) select as many rows of the edges as they hold, keep
+    mask mode; light constants of that same template take seeded lanes.
+    Every answer equals the oracle's."""
+    rng = np.random.default_rng(2)
+    src, dst = rng.integers(0, 30, 400), rng.integers(0, 30, 400)
+    views = edge_views(PORT, src, dst)
+    # vertex 0 holds a third of these edges: three requests for it select them all
+    hub = edge_views(PORT, np.where(np.arange(400) % 3 == 0, 0, src), dst)
+    assert 3 * np.count_nonzero(hub["K1"].columns["a"] == 0) >= 400
+    kc = relcache.KeyedCache()
+    adm = S.AdmissionController(per_tenant={"capped": S.QueryQuota(max_node_capacity=1 << 20)})
+    eng = PORT.engine(slots=4, cache=kc, admission=adm)
+    chain_q, chain_rels = workload(PORT, CHAIN4, seed=3, n=300, dom=10)
+    tree = _bushy(PORT, {a.alias: a for a in chain_q.atoms})
+    runs = {}
+    for name, (q, rels), filters, kw in (
+        ("fof", graph_query(PORT, views, ["K1", "K2"]), {"a": 3}, {}),
+        ("q1", graph_query(PORT, views, ["K1", "K2", "K3"]), {"a": 3}, {}),
+        ("q1 capped", graph_query(PORT, views, ["K1", "K2", "K3"]), {"a": 3},
+         {"tenant": "capped"}),
+        ("chain4 e", (chain_q, chain_rels), {"e": 4}, {"plan_tree": tree}),
+        ("q1 hub", graph_query(PORT, hub, ["K1", "K2", "K3"]), [{"a": 0}] * 3, {}),
+        ("q1 hub, light", graph_query(PORT, hub, ["K1", "K2", "K3"]), {"a": 3}, {}),
+    ):
+        batch = filters if isinstance(filters, list) else [
+            {k: c + i for k, c in filters.items()} for i in range(3)]
+        before = set(map(id, _cached_runners(kc)))
+        reqs = [eng.submit(q, rels, f, **kw) for f in batch]
+        eng.run()
+        for f, r in zip(batch, reqs):
+            assert r.error is None and r.result == oracle(PORT, q, rels, f)
+        (new,) = [r for r in _cached_runners(kc) if id(r) not in before]
+        runs[name] = seeded(new)
+    assert runs == {"fof": True, "q1": True, "q1 capped": False, "chain4 e": False,
+                    "q1 hub": False, "q1 hub, light": True}
+
+
+@pytest.mark.parametrize("filter_vars,seeds,fewer", [
+    (("x",), [[2], [7]], True),            # 3 + 1 of the 6 rows
+    (("x",), [[2], [2]], False),           # 3 + 3: a repeated constant counts twice
+    (("x",), [[2], [99], [99]], True),     # a constant that binds no row adds none
+    (("x", "y"), [[2, 5], [2, 5]], True),  # (2, 5) holds 2 rows: 4 of 6
+    (("x", "y"), [[2, 5]] * 3, False),     # 6 of 6
+    (("w",), [[2]], False),                # the cover does not bind w
+], ids=["two-rows", "repeated", "absent", "two-vars", "two-vars-all", "not-the-cover"])
+def test_seeds_select_fewer_rows_counts_the_batch(filter_vars, seeds, fewer):
+    """The engine's test for seeded lanes: the first cover binds every
+    filter var, and the rows of its relation a batch's constants select,
+    duplicates counted, are fewer than it holds."""
+    rel = Relation("R", {"x": np.array([2, 2, 2, 7, 9, 9]), "y": np.array([5, 5, 1, 5, 5, 1])})
+    q = Query([Atom("R", ("x", "y"))])
+    plan = factor(binary2fj(q.atoms, q))
+    got = api._seeds_select_fewer_rows(plan, {"R": rel}, filter_vars, np.array(seeds, np.int32))
+    assert got is fewer
+
+
+def _lanes_of_one_dispatch(runner, rels, consts):
+    runner.run_relations(rels, filter_consts=consts)  # capacities settle
+    live, allocated = TRACE.lanes_live, TRACE.lanes_allocated
+    syncs = TRANSFERS.syncs
+    counts = runner.run_relations(rels, filter_consts=consts)
+    return (TRACE.lanes_live - live, TRACE.lanes_allocated - allocated,
+            TRANSFERS.syncs - syncs, counts)
+
+
+def test_seeded_work_follows_the_selection_not_the_relation():
+    """The same constants on a graph and on that graph beside 100 times as
+    many edges they never reach: a seeded dispatch's lanes stay within 2x,
+    a mask-mode dispatch's grow with the graph. A warm seeded dispatch
+    waits for the device at its documented read-backs and its constants'
+    upload only."""
+    rng = np.random.default_rng(7)
+    n, verts = 200, 40
+    src, dst = rng.integers(0, verts, n), rng.integers(0, verts, n)
+    far = verts + rng.integers(0, 100 * verts, (2, 100 * n))  # vertices past the graph
+    consts = np.array([[1], [5], [9]], np.int32)
+    lanes = {}
+    for size, (s, d) in (("small", (src, dst)), ("large", (np.concatenate([src, far[0]]),
+                                                            np.concatenate([dst, far[1]])))):
+        q, rels = graph_query(PORT, edge_views(PORT, s, d), ["K1", "K2"])
+        seeded_runner, *_ = api._acquire_runner(q, rels, None, agg="count", options=CPU,
+                                                filter_vars=("a",), batch=4, seeds=consts)
+        mask_runner, *_ = api._acquire_runner(q, rels, None, agg="count", options=CPU,
+                                              filter_vars=("a",), batch=4)
+        assert seeded(seeded_runner) and not seeded(mask_runner)
+        s_live, s_alloc, s_syncs, s_counts = _lanes_of_one_dispatch(seeded_runner, rels, consts)
+        m_live, m_alloc, _syncs, m_counts = _lanes_of_one_dispatch(
+            mask_runner, rels, np.concatenate([consts, consts[:1]]))
+        assert s_counts[:3].tolist() == m_counts[:3].tolist() == [
+            compiled_free_join(q, rels, filters={"a": int(c)}, options=CPU) for c in consts[:, 0]]
+        assert s_syncs == seeded_runner.warm_read_backs + 1  # + the constants' upload
+        lanes[size] = (s_live, s_alloc, m_live, m_alloc)
+    (s_live, s_alloc, m_live, m_alloc), big = lanes["small"], lanes["large"]
+    assert s_live == big[0] and big[1] <= 2 * s_alloc
+    # mask mode scans every row: its lanes grow with the edges (allocated
+    # lanes by less, as the small graph's buffer is one rounded block)
+    assert big[2] >= 100 * m_live and big[3] >= 10 * m_alloc

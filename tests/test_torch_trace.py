@@ -365,3 +365,24 @@ def test_dispatch_cost_is_the_dispatch_span():
     for key, us in seen:
         ema[key] = us if key not in ema else 0.7 * ema[key] + 0.3 * us
     assert eng.cost_ema_us == pytest.approx(ema)
+
+
+def test_seeded_dispatches_count_the_seeded_calls():
+    """TRACE.seeded_dispatches rises by exactly the engine's seeded
+    dispatches, and not at all for mask-mode dispatches (a group whose
+    member carries a max_node_capacity quota) or kill-mode calls."""
+    from repro_torch.serve import AdmissionController, QueryQuota
+
+    q, rels = case(TRIANGLE, seed=21, n=200, dom=12)
+    adm = AdmissionController(per_tenant={"capped": QueryQuota(max_node_capacity=1 << 20)})
+    eng = JoinServeEngine(slots=4, options=CPU, admission=adm)
+    counts = []
+    for tenant in ("free", "capped"):
+        seeded, dispatches = TRACE.seeded_dispatches, eng.dispatches
+        reqs = [eng.submit(q, rels, {"x": c}, tenant=tenant) for c in range(6)]
+        eng.run()
+        assert all(r.error is None for r in reqs)
+        counts.append((TRACE.seeded_dispatches - seeded, eng.dispatches - dispatches))
+    seeded = TRACE.seeded_dispatches
+    compiled_free_join(q, rels, filters={"x": 3}, options=CPU)
+    assert counts == [(2, 2), (0, 2)] and TRACE.seeded_dispatches == seeded
