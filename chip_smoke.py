@@ -106,8 +106,9 @@ Phases (any failure raises, and the script exits non-zero):
      at 16 lanes, in mask mode and on seeded lanes (acquired as
      JoinServeEngine acquires it for 16 requests of the person with the
      fewest friends), each call also counted by sync_count; no ERROR, and the audit's host syncs equal
-     sync_count's; per runner syncs, K1-K4 launches, tensor ops per
-     schedule op and the upload inventory. A JoinServeEngine(slots = 16)
+     sync_count's; per runner its plan (a lane-choice node in braces)
+     and tiles per stage, syncs, K1-K4 launches, tensor ops per schedule
+     op and the upload inventory. A JoinServeEngine(slots = 16)
      rejects a query with an unbound head variable and one with an
      unknown filter variable, then serves a valid request (the top hub's
      triangle count) equal to the numpy oracle. count_query on q1 with
@@ -472,6 +473,7 @@ def main_path(device: str, seed: int, sf: float, star_n: int, star_dom: int, syn
                          f"{len(tri_rows)}")
                 rec["rows"] = len(got)
         rec["plan"] = str(info["cap_plan"])
+        rec["fj_plan"] = str(info["runner"].plan)  # a lane-choice node prints in braces
         rec["compiles"] = info["compiles"]
         if rec["warm_builds"] or rec["warm_retries"]:
             fail(f"{name} agg={agg}: warm call built {rec['warm_builds']} tries, "
@@ -1334,6 +1336,8 @@ def analysis_path(device: str, seed: int, workloads, ref, sync):
         rep = audit_runner(runner, rels, name=name, trace=trace)
         n_ops = sum(trace.ops.values()) + sum(trace.kernel_calls.values())
         rec["audit"][name] = {
+            "plan": str(runner.plan),
+            "tiles": [cp.tiles for cp in runner._as_chain(runner.cap_plan).stages],
             "syncs": trace.syncs, "sync_count": syncs, "read_backs": runner.warm_read_backs,
             "sync_sites": trace.sync_sites,
             "launches": {k: trace.launches[k] for k in JOIN_KERNELS},

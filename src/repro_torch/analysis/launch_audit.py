@@ -345,8 +345,10 @@ def runner_limits(runner) -> dict:
     max_cap = max((c for cp in chain.stages for c in cp.capacities), default=1)
     names = {name for name, _ in runner.stages}
     probes = stage_tries = 0
-    for r, (_name, plan), sched in zip(_stage_runs(runner), runner.stages, runner.schedules):
-        probes += r * sum(len(p) for _k, _c, p in sched.entries)
+    for r, (_name, plan), sched, cp in zip(_stage_runs(runner), runner.stages, runner.schedules,
+                                           chain.stages):
+        probes += r * sum(n * len(p) for n, (_k, _c, p) in zip(sched.runs(cp.tiles),
+                                                               sched.entries))
         stage_tries += r * sum(a.alias in names for a in plan.query.atoms)
     return {
         "read_backs": runner.warm_read_backs,
@@ -360,10 +362,13 @@ def runner_limits(runner) -> dict:
 
 def schedule_ops(runner) -> int:
     """Schedule ops of one call (cover expansions and probes, per lane
-    where a stage runs per lane)."""
-    runs = _stage_runs(runner)
+    where a stage runs per lane, per tile and per lane-choice cover where
+    the stage runs in sub-runs: StaticSchedule.runs)."""
+    chain = runner._as_chain(runner.cap_plan)
     return sum(
-        r * (1 + len(p)) for r, sched in zip(runs, runner.schedules) for _k, _c, p in sched.entries
+        r * n * (1 + len(p))
+        for r, sched, cp in zip(_stage_runs(runner), runner.schedules, chain.stages)
+        for n, (_k, _c, p) in zip(sched.runs(cp.tiles), sched.entries)
     )
 
 

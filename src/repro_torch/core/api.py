@@ -37,7 +37,14 @@ import torch
 
 from repro_torch.core import engine, faults, membudget, relcache
 from repro_torch.core.engine import materialize
-from repro_torch.core.optimizer import FilteredStats, JoinOrderOptimizer, Stats, optimize
+from repro_torch.core.optimizer import (
+    FilteredStats,
+    JoinOrderOptimizer,
+    Stats,
+    choose_split,
+    key_counts,
+    optimize,
+)
 from repro_torch.core.plan import (
     BinaryPlan,
     FreeJoinPlan,
@@ -316,20 +323,6 @@ def free_join(
     )
 
 
-def _key_counts(rel, vs: tuple[str, ...]):
-    """The distinct values of `rel`'s columns `vs` (sorted; one void
-    scalar a row when there are several columns) and their row counts,
-    memoized on the relation and its first column object."""
-
-    def compute():
-        if len(vs) == 1:
-            return np.unique(rel.columns[vs[0]], return_counts=True)
-        return np.unique(_as_rows(np.stack([rel.columns[v] for v in vs], axis=1)),
-                         return_counts=True)
-
-    return relcache.memo(relcache.REGISTRY, rel, "key_counts", vs, rel.columns[vs[0]], compute)
-
-
 def _as_rows(a: np.ndarray) -> np.ndarray:
     """(n, F) integers -> n void scalars, equal where the rows are."""
     a = np.ascontiguousarray(a, dtype=np.int64)
@@ -348,7 +341,7 @@ def _seeds_select_fewer_rows(plan: FreeJoinPlan, rels, filter_vars, seeds) -> bo
     rel = rels[cover.alias]
     if not set(filter_vars) <= set(cover.vars) or not rel.num_rows:
         return False
-    keys, counts = _key_counts(rel, tuple(filter_vars))
+    keys, counts = key_counts(rel, tuple(filter_vars))
     seeds = np.asarray(seeds)
     q = seeds[:, 0] if len(filter_vars) == 1 else _as_rows(seeds)
     at = np.minimum(np.searchsorted(keys, q), len(keys) - 1)
@@ -397,7 +390,7 @@ def _acquire_runner(
     whose per-call stage relations make caching useless, and plan_tree is
     the binary plan actually chosen (the caller's, or the optimizer's)."""
     with TRACE.plan_acquire:
-        from repro_torch.core.capacity import plan_chain_capacities
+        from repro_torch.core.capacity import lane_budget, plan_chain_capacities
         from repro_torch.core.compiled import AdaptiveExecutor, SeededExecutor, _base_aliases
 
         cache = _runner_cache if cache is None else cache
@@ -440,11 +433,8 @@ def _acquire_runner(
         )
         runner = cache.get(key) if cacheable else None
         if runner is None:
-            seed = seed_plan(stages[0][1], filter_vars) if seeded else None
-            if seed is not None:  # the seeded plan runs in the template's place
-                stages = [(stages[0][0], seed)]
             pstats = stats
-            if filter_vars and (batch is None or seed is not None):
+            if filter_vars and (batch is None or seeded):
                 # kill-mode filters prune the frontier as they apply, so
                 # capacity-plan for the selected slice, not the whole relation;
                 # this depends only on WHICH vars are filtered, never on the
@@ -458,6 +448,14 @@ def _acquire_runner(
                      for a in query.atoms},
                 )
             with TRACE.plan_capacity:
+                # a partly bound lookup split into a probe and a further
+                # cover, chosen per lane, where the estimate says it
+                # expands fewer lanes (a function of the plan and the
+                # relations, so the key above names the runner still)
+                stages = [(name, choose_split(fj, stats)) for name, fj in stages]
+                seed = seed_plan(stages[0][1], filter_vars) if seeded else None
+                if seed is not None:  # the seeded plan runs in the template's place
+                    stages = [(stages[0][0], seed)]
                 cap_plan = plan_chain_capacities(
                     stages,
                     stats=pstats,
@@ -465,6 +463,7 @@ def _acquire_runner(
                     compact_threshold=options.compact_threshold,
                     feedback=relcache.FEEDBACK,
                     lanes=batch if seed is not None else 1,
+                    lane_budget=lane_budget(options.device),
                 )
             if options.verify:
                 # full pre-build verification: plan structure, schedules,

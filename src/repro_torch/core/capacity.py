@@ -20,14 +20,24 @@ Under-estimates are recoverable: the executor reports every node's
 *required* total and the adaptive runner jumps exactly the offending
 capacity to that need and retries (see compiled.AdaptiveExecutor), so
 the plan here only has to be right on average, not in the worst case.
+
+A node whose planned lanes would not fit the lane budget (`lane_budget`:
+the memory governor's budget where one is set, else a fixed share of the
+card's memory, never what is free at the moment, over LANE_BYTES a lane)
+runs the plan in tiles: `tiles` consecutive slices of the first node's
+relation rows, every buffer sized for one (compiled.make_executor). The
+tile count is a function of the estimates and that budget alone; the
+adaptive runner adds tiles where a measured need passes the budget.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field, replace
 
+import torch
 from scipy.optimize import linprog as _linprog
 
+from repro_torch.core import membudget
 from repro_torch.core.optimizer import NodeEstimate, StageStats, Stats, estimate_prefixes, stage_est
 from repro_torch.core.plan import FreeJoinPlan
 from repro_torch.kernels.csr_expand import OBLK
@@ -79,6 +89,44 @@ def agm_bound(edges: dict[str, tuple[str, ...]], sizes: dict[str, float]) -> flo
 
 def _round_block(x: float, block: int) -> int:
     return max(block, int(math.ceil(x / block)) * block)
+
+
+# Device bytes one frontier lane holds at its node's peak, every
+# temporary counted: q1 on GAP's urand at scale 18 peaks at 62 a lane
+# (16,265 MiB for 276.9 million lanes, relations and tries included) on
+# an H100; the rest is room for plans that bind more variables.
+LANE_BYTES = 96
+# The share of the card's memory one node's lanes may take where no
+# memory-governor budget is set; the CPU's plain kernels count
+# HOST_MEMORY as their card's.
+LANE_SHARE = 0.4
+HOST_MEMORY = 16 << 30
+# Room a node of several sub-runs (tiles, lane-choice covers) gets over
+# their mean: the mean is a function of the relation, the largest of the
+# order its rows happen to lie in.
+TILE_SLACK = 1.02
+# Lanes one buffer can index (int32 positions).
+INDEX_LIMIT = 2**31 - 1
+# No plan tiles below this many lanes a buffer (~100 MB at LANE_BYTES): a
+# smaller tile costs more in launches than its memory is worth, and the
+# memory governor keeps buffers that small within its budget by evicting
+# and shedding.
+TILE_MIN_LANES = 1 << 20
+
+
+def lane_budget(device) -> int:
+    """The lanes one frontier buffer may hold on `device`: the memory
+    governor's budget where one is set, else LANE_SHARE of the card's
+    total memory, over LANE_BYTES, and never fewer than TILE_MIN_LANES;
+    never the memory free at the moment, so that it is the same from run
+    to run."""
+    budget = membudget.GOVERNOR.budget
+    if budget is None:
+        dev = torch.device(device)
+        total = (torch.cuda.get_device_properties(dev).total_memory if dev.type == "cuda"
+                 else HOST_MEMORY)
+        budget = int(LANE_SHARE * total)
+    return max(1, min(INDEX_LIMIT, max(TILE_MIN_LANES, int(budget) // LANE_BYTES)))
 
 
 def node_agm_bounds(schedule, sizes: dict[str, float]) -> list[float]:
@@ -148,6 +196,9 @@ class CapacityPlan:
     # the query's StaticSchedule, computed once by the planner and reused by
     # every executor build (AdaptiveExecutor, spmd_count)
     schedule: object = field(default=None, compare=False, repr=False)
+    # consecutive slices of the first node's rows the plan runs over, every
+    # buffer sized for one (module docstring)
+    tiles: int = 1
 
     def grow(self, node: int, *, compaction: bool = False) -> "CapacityPlan":
         """Double one node's capacity. Growing a compaction target past its
@@ -224,7 +275,8 @@ class CapacityPlan:
         for i, (cap, ct) in enumerate(zip(self.capacities, self.compact_to)):
             at = f"@p{self.compact_probe[i]}" if ct is not None and self.compact_probe else ""
             parts.append(f"n{i}:{cap}" + (f"->{ct}{at}" if ct is not None else ""))
-        return "CapacityPlan[" + ", ".join(parts) + "]"
+        tiles = f"; {self.tiles} tiles" if self.tiles > 1 else ""
+        return "CapacityPlan[" + ", ".join(parts) + tiles + "]"
 
 
 @dataclass(frozen=True)
@@ -242,7 +294,16 @@ class ChainCapacityPlan:
         """Hashable identity of every static shape in the chain (the
         executor-cache key)."""
         return tuple(
-            (cp.capacities, cp.compact_to, cp.compact_probe) for cp in self.stages
+            (cp.capacities, cp.compact_to, cp.compact_probe, cp.tiles) for cp in self.stages
+        )
+
+    def retile(self, stage: int, tiles: int):
+        """Run one stage in `tiles` tiles (its capacities as they are:
+        the next run's needs size them)."""
+        return replace(
+            self,
+            stages=tuple(replace(cp, tiles=tiles) if i == stage else cp
+                         for i, cp in enumerate(self.stages)),
         )
 
     def grow_to(self, stage: int, node: int, need: int, *, compaction: bool = False):
@@ -291,6 +352,7 @@ def plan_capacities(
     compact_output: bool = False,
     feedback=None,
     lanes: int = 1,
+    lane_budget: int | None = None,
 ) -> CapacityPlan:
     """Derive a CapacityPlan for `plan` (see module doc).
 
@@ -315,7 +377,11 @@ def plan_capacities(
     lanes: the seeded-lanes width. A seeded plan's estimates are one
     query's (stats is a FilteredStats); every estimate and AGM bound is
     taken `lanes` times, so the buffers hold a full batch, and the first
-    node (no cover, no expansion) gets `lanes`, the seeded frontier."""
+    node (no cover, no expansion) gets `lanes`, the seeded frontier.
+    lane_budget: the lanes one buffer may hold (the module function
+    lane_budget); where a node's estimate passes it and the schedule can
+    tile, the plan runs in the fewest tiles that bring every node's
+    estimate within it, and every estimate is taken a tile's share."""
     from repro_torch.core.compiled import _static_schedule  # deferred: avoids a cycle
 
     if stats is None:
@@ -328,6 +394,10 @@ def plan_capacities(
         for a in {sa.alias for node in plan.nodes for sa in node}
     }
     agms = [lanes * a for a in node_agm_bounds(schedule.entries, sizes)]
+    tiles = 1
+    if lane_budget is not None and schedule.tileable():
+        most = max((e.expand for e in estimates), default=1.0)
+        tiles = max(1, math.ceil(most / lane_budget))
     prefix: dict[str, tuple[str, ...]] = {a: () for a in sizes}
     caps: list[int] = []
     compact: list[int | None] = []
@@ -342,7 +412,7 @@ def plan_capacities(
             continue
         prefix[cover.alias] = prefix[cover.alias] + tuple(cover.vars)
         cap = _round_block(
-            min(max(1.0, est.expand) * safety * lanes, bound, float(max_capacity)), block
+            min(max(1.0, est.expand / tiles) * safety * lanes, bound, float(max_capacity)), block
         )
         last = est is estimates[-1] and not compact_output
         # earliest probe after which the predicted live fraction collapses:
@@ -355,7 +425,7 @@ def plan_capacities(
             more_work = (j + 1 < len(probes)) or not last
             if target is not None or not more_work:
                 continue
-            a_est = est.probe_after[j] * lanes
+            a_est = est.probe_after[j] * lanes / tiles
             t = _round_block(
                 min(max(1.0, a_est) * safety, lanes * agm_bound(prefix, sizes)), block
             )
@@ -369,7 +439,7 @@ def plan_capacities(
             # compact-overflow retry that jumps to the *measured* live count,
             # so steady state converges to a tight output buffer.
             t = _round_block(
-                min(max(1.0, est.after * lanes), lanes * agm_bound(prefix, sizes)), block
+                min(max(1.0, est.after * lanes / tiles), lanes * agm_bound(prefix, sizes)), block
             )
             if t < cap:
                 target, cp_idx = t, len(probes)
@@ -384,6 +454,7 @@ def plan_capacities(
         agm=tuple(agms),
         block=block,
         schedule=schedule,
+        tiles=tiles,
     )
 
 
@@ -397,6 +468,7 @@ def plan_chain_capacities(
     max_capacity: int = 1 << 22,
     feedback=None,
     lanes: int = 1,
+    lane_budget: int | None = None,
 ) -> ChainCapacityPlan:
     """Capacity-plan a whole stage chain in one pass (no materialization).
 
@@ -409,7 +481,8 @@ def plan_chain_capacities(
     prefix estimate and AGM bound. Non-root stages plan with
     compact_output=True so their output buffers (the next trie's static
     width) get squeezed when the estimates say most lanes are dead.
-    `lanes` sizes a seeded plan for that many lanes (plan_capacities)."""
+    `lanes` sizes a seeded plan for that many lanes, and `lane_budget`
+    tiles a stage whose estimates pass it (plan_capacities)."""
     sstats = StageStats(stats)
     cps = []
     for i, (name, plan) in enumerate(stages):
@@ -425,6 +498,7 @@ def plan_chain_capacities(
                 compact_output=not root,
                 feedback=feedback,
                 lanes=lanes,
+                lane_budget=lane_budget,
             )
         )
         if not root:

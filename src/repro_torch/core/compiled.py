@@ -50,6 +50,29 @@ output columns stay on the device as a padded buffer (invalid lanes
 stamped PAD_KEY with multiplicity 0), and the next stage builds a
 *weighted* StaticTrie straight from that buffer.
 
+Skewed joins add two shapes of a call:
+
+* LANE-CHOICE nodes (plan.split_lookups, taken where
+  optimizer.choose_split's per-key estimate says they expand fewer
+  lanes): a node whose covers, two or more, hold exactly its new vars.
+  Each lane reads its group's size under every cover (iter_counts),
+  iterates the smallest (K2) and probes the others (K1), so no lane
+  expands the larger of a hub's neighbourhoods. The lanes that chose one
+  cover run the rest of the plan as a frontier of their own, one cover
+  after another, and their counts fold into one int64 total.
+* TILES (CapacityPlan.tiles): where a node's planned lanes pass the lane
+  budget (capacity.lane_budget), the call runs over consecutive slices of
+  its first node's relation rows, each a view of the uploaded columns, one
+  after another, every buffer sized for one tile.
+
+Tiles and covers are a call's sub-runs: a node's reported need is its
+largest over them, its lanes summed over them come back with the needs
+(`sums`, one copy), and a need that may reach 2**31 lanes is an int64,
+so it reads as itself; the adaptive runner sizes a node of several sub-runs
+from their mean, adds tiles where a need passes the lane budget, and
+raises where a need passes what one buffer indexes and the plan cannot
+tile.
+
 The driver contract:
 
 * make_executor builds the probe program for one capacity vector. Buffer
@@ -91,7 +114,7 @@ clamps): every index that can leave its range is clamped explicitly.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, field, replace
 
 import numpy as np
 import torch
@@ -110,6 +133,7 @@ from repro_torch.kernels.radix_sort import lex_searchsorted
 PAD_KEY = 2**31 - 1
 
 _I32 = torch.int32
+_I32_MAX = 2**31 - 1
 
 
 @dataclass(frozen=True)
@@ -125,10 +149,15 @@ class StaticSchedule:
     """One static walk of a plan, computed once per query and threaded
     through the whole driver stack (planner, estimator, executor builds).
     entries[i] = (node index, cover subatom, probe subatoms); level_ops maps
-    alias -> per-level probe/iterate decisions."""
+    alias -> per-level probe/iterate decisions. choices maps the entry of a
+    lane-choice node to its covers, the entry's cover first: each lane
+    iterates one of them and probes the others, so those levels are both
+    iterated and probed. An entry's (cover, probes) is the walk of a lane
+    that takes the first cover."""
 
     entries: tuple
     level_ops: dict
+    choices: dict = field(default_factory=dict)
 
     def __len__(self):
         return len(self.entries)
@@ -136,22 +165,47 @@ class StaticSchedule:
     def __iter__(self):
         return iter(self.entries)
 
+    def runs(self, tiles: int = 1) -> tuple[int, ...]:
+        """How many times one call runs each entry: once a tile, and once
+        more for each cover chosen at every lane-choice node up to it (each
+        cover's lanes run the rest of the plan on their own)."""
+        out, r = [], tiles
+        for i in range(len(self.entries)):
+            r *= len(self.choices.get(i, (None,)))
+            out.append(r)
+        return tuple(out)
+
+    def tileable(self) -> bool:
+        """Can a call run in tiles: does the first entry iterate a cover
+        read straight off its relation's rows (one level, never probed)?"""
+        if not self.entries or self.entries[0][1] is None or 0 in self.choices:
+            return False
+        lops = self.level_ops[self.entries[0][1].alias]
+        return len(lops.levels) == 1 and not lops.probed[0]
+
 
 def _static_schedule(plan: FreeJoinPlan) -> StaticSchedule:
     """Walk the plan once, statically: per node pick the cover (first listed
     — plans arrive factored), mark each atom level probe/iterate. A seeded
     plan's first node has no cover (None): its vars are the lanes'
-    constants, and every subatom of it is probed."""
+    constants, and every subatom of it is probed. A lane-choice node
+    (plan.lane_choice) lists its covers in `choices`, and every one of
+    their levels is marked probed."""
     parts = plan.partitions()
     consumed: dict[str, int] = {a: 0 for a in parts}
     probed: dict[str, list[bool]] = {a: [False] * len(parts[a]) for a in parts}
     schedule = []
+    choices = {}
     for k, node in enumerate(plan.nodes):
         subs = [sa for sa in node if sa.vars]
         if not subs:
             continue
         if plan.seeded and k == 0:
             cover = None
+        elif k in plan.lane_choice:
+            covers = [sa for sa in plan.choice_covers(k) if any(sa is s for s in subs)]
+            cover = covers[0]
+            choices[len(schedule)] = tuple(covers)
         else:
             covers = [sa for sa in plan.covers(k) if sa.vars and any(sa is s for s in subs)]
             cover = covers[0]
@@ -161,9 +215,10 @@ def _static_schedule(plan: FreeJoinPlan) -> StaticSchedule:
             probed[sa.alias][consumed[sa.alias]] = True
             consumed[sa.alias] += 1
         if cover is not None:
+            probed[cover.alias][consumed[cover.alias]] |= k in plan.lane_choice
             consumed[cover.alias] += 1
     level_ops = {a: _LevelOps(tuple(parts[a]), tuple(probed[a])) for a in parts}
-    return StaticSchedule(entries=tuple(schedule), level_ops=level_ops)
+    return StaticSchedule(entries=tuple(schedule), level_ops=level_ops, choices=choices)
 
 
 def _lexsort(keys: list[torch.Tensor]) -> torch.Tensor:
@@ -853,6 +908,7 @@ def make_executor(
     schedule: StaticSchedule | None = None,
     filters: tuple = (),
     filter_kill: bool = True,
+    tiles: int = 1,
 ):
     """Build the probe program for `plan` (see module docstring).
 
@@ -871,9 +927,20 @@ def make_executor(
     rel_mults (optional) maps an alias to a per-row multiplicity vector;
     such a relation is a *weighted* (stage-output) buffer whose mult-0 rows
     are padding — see StaticTrie. need_expand/need_compact are
-    (num_executed_nodes,) int32 tensors of required totals. The count is
-    summed in int64; the reference sums in int32, so the two differ only
-    where the reference wraps at 2**31.
+    (num_executed_nodes,) tensors of required totals: int32, or int64
+    where an expansion's total may reach 2**31 (its frontier's lanes times
+    its trie's rows pass it), so a need of 2**31 or more reads as itself,
+    never wrapped. The count is summed in int64; the
+    reference sums in int32, so the two differ only where the reference
+    wraps at 2**31.
+
+    tiles: run the plan over `tiles` consecutive slices of the first
+    node's relation rows, each a view of its columns (schedule.tileable),
+    one after another, every buffer sized for one tile; the counts (or
+    rows) of the tiles add up. A lane-choice node (schedule.choices) runs
+    each cover's lanes, those for which that cover holds the fewest keys,
+    as a frontier of its own through the rest of the plan. Tiles and
+    covers are a call's sub-runs: a node's need is its largest over them.
 
     filters: ((var, const_index), ...) — equality selections whose
     constants are a runtime int32 tensor `filter_consts`, compared against
@@ -906,9 +973,13 @@ def make_executor(
       need is the live lane count.
 
     After each call `fn.allocated` is (expansion sizes, compaction sizes),
-    per executed node the lanes its buffers took (0 where it made none:
-    the factorized count, a node that does not compact), for the lane
-    counters of core/trace.py.
+    per executed node the lanes its buffers took over the call's sub-runs
+    (0 where it made none: the factorized count, a node that does not
+    compact), for the lane counters of core/trace.py. `fn.sums` is None
+    for a call of one sub-run, else a (num_executed_nodes, 4) int64
+    device tensor of per-node sums over the sub-runs: lanes expanded, of
+    them from a lane-choice node's other covers, live lanes of the
+    expansions and of the compactions.
     """
     plan.validate()
     filters = tuple(filters)
@@ -918,7 +989,11 @@ def make_executor(
         raise ValueError(f"filter vars not bound by this plan: {sorted(unknown)}")
     if schedule is None:
         schedule = _static_schedule(plan)
+    if tiles > 1 and not schedule.tileable():
+        raise ValueError("tiles need a first node that iterates its relation's rows")
     level_ops = schedule.level_ops
+    choices = schedule.choices
+    subruns = tiles > 1 or bool(choices)
     schedule = schedule.entries
     nsched = len(schedule)
     seeded = nsched > 0 and schedule[0][1] is None
@@ -958,169 +1033,332 @@ def make_executor(
             a: as_trie(rel_data[a], level_ops[a], mults.get(a)) for a in level_ops
         }
         device = next(iter(next(iter(tries.values())).cols.values())).device
-        # mask-mode filter state: (B, cap) per-lane liveness that never
-        # feeds the frontier layout; created at the first filter comparison
-        fvalid = None
-        depth = {a: 0 for a in level_ops}
         # frontier: one empty row, or the seeded lanes with their lane ids;
         # a slot past a buffer's count holds `no_lane`, so the ids never
-        # decrease along the frontier (see _sum_by_lane)
-        lane = no_lane = None
-        bound: dict[str, torch.Tensor] = {}
+        # decrease along the frontier (see _sum_by_lane). fvalid is the
+        # mask-mode filter state: (B, cap) per-lane liveness that never
+        # feeds the frontier layout, created at the first filter comparison
+        st = _Front()
+        no_lane = None
         if seeded:
-            cap = no_lane = filter_consts.shape[0]
-            lane = torch.arange(cap, dtype=_I32, device=device)
-            valid = lane < (cap if live is None else live)
-            bound = {v: filter_consts[:, j] for v, j in filter_idx.items()}
+            st.cap = no_lane = filter_consts.shape[0]
+            st.lane = torch.arange(st.cap, dtype=_I32, device=device)
+            st.valid = st.lane < (st.cap if live is None else live)
+            st.bound = {v: filter_consts[:, j] for v, j in filter_idx.items()}
         else:
-            cap = 1
-            valid = torch.ones(1, dtype=torch.bool, device=device)
-        mult = torch.ones(cap, dtype=_I32, device=device)
-        gid: dict[str, torch.Tensor] = {}
+            st.cap = 1
+            st.valid = torch.ones(1, dtype=torch.bool, device=device)
+        st.mult = torch.ones(st.cap, dtype=_I32, device=device)
+        st.depth = {a: 0 for a in level_ops}
+        # needs stay int32 where no total can reach 2**31, so that they
+        # stack in one launch; one that may reach it is an int64
         zero = torch.zeros((), dtype=_I32, device=device)
         need_expand = [zero] * nsched
         need_compact = [zero] * nsched
-        # lanes each node allocates: its expansion's capacity, its
-        # compaction's target (0 where it makes no such buffer)
+        # lanes each node allocates: its expansions' capacities, its
+        # compactions' targets (0 where it makes no such buffer), summed
+        # over the call's sub-runs
         alloc_expand = [0] * nsched
         alloc_compact = [0] * nsched
+        # a call of several sub-runs (tiles, lane-choice covers): per node,
+        # the summed [expanded lanes, of them from a cover other than the
+        # first, live lanes of the expansions, of the compactions]
+        zero64 = torch.zeros((), dtype=torch.int64, device=device) if subruns else None
+        sums = [[zero64] * 4 for _ in range(nsched)] if subruns else None
+        seen_e, seen_c = set(), set()
 
-        def squeeze(bound, gid, mult, valid, fvalid, lane, cap, c_compact, i):
+        def note(i, total, size, compaction=False, other=False):
+            needs, seen = (need_compact, seen_c) if compaction else (need_expand, seen_e)
+            needs[i] = torch.maximum(needs[i], total) if i in seen else total
+            seen.add(i)
+            (alloc_compact if compaction else alloc_expand)[i] += size
+            if sums is not None:
+                row = sums[i]
+                if compaction:
+                    row[3] = row[3] + torch.clamp(total, max=size)
+                else:
+                    row[0] = row[0] + total
+                    row[2] = row[2] + torch.clamp(total, max=size)
+                    if other:
+                        row[1] = row[1] + total
+
+        def bind(st, vs, cols):
+            """Bind the vars an iteration read: a semijoin on re-bound
+            vars, and a filter's comparison the moment its var is bound."""
+            for v, cvals in zip(vs, cols):
+                if v in st.bound:  # semijoin on re-bound vars
+                    st.valid = st.valid & (st.bound[v] == cvals)
+                else:
+                    st.bound[v] = cvals
+                    if v in filter_idx and filter_kill:  # constant
+                        # selection the moment the var is bound: dead
+                        # lanes never reach a probe
+                        st.valid = st.valid & (cvals == filter_consts[filter_idx[v]])
+                    elif v in filter_idx:  # layout-neutral lane mask
+                        hit = cvals[None, :] == filter_consts[:, filter_idx[v], None]
+                        st.fvalid = hit if st.fvalid is None else st.fvalid & hit
+
+        def squeeze(st, c_compact, i):
             """Pack the valid lanes into a fresh c_compact-wide frontier
             (on `valid` alone: the mask-mode filter mask and the seeded
             lane ids ride along)."""
-            src, n_live = ops.compact_indices(valid, c_compact)
-            need_compact[i] = n_live
-            alloc_compact[i] = c_compact
-            srcc = src.clamp(0, cap - 1)
-            bound = {v: a[srcc] for v, a in bound.items()}
-            gid = {a: arr[srcc] for a, arr in gid.items()}
-            mult = mult[srcc]
-            if fvalid is not None:
-                fvalid = fvalid[:, srcc]
-            if lane is not None:
-                lane = torch.where(src >= 0, lane[srcc], no_lane)
-            valid = torch.arange(c_compact, dtype=_I32, device=device) < n_live
-            return bound, gid, mult, valid, fvalid, lane, c_compact
+            src, n_live = ops.compact_indices(st.valid, c_compact)
+            note(i, n_live, c_compact, compaction=True)
+            srcc = src.clamp(0, st.cap - 1)
+            st.bound = {v: a[srcc] for v, a in st.bound.items()}
+            st.gid = {a: arr[srcc] for a, arr in st.gid.items()}
+            st.mult = st.mult[srcc]
+            if st.fvalid is not None:
+                st.fvalid = st.fvalid[:, srcc]
+            if st.lane is not None:
+                st.lane = torch.where(src >= 0, st.lane[srcc], no_lane)
+            st.valid = torch.arange(c_compact, dtype=_I32, device=device) < n_live
+            st.cap = c_compact
 
-        for i, ((k, cover, probes), c_next, c_compact, cp_idx) in enumerate(
-            zip(schedule, capacities, compact_to, compact_probe)
-        ):
-            with TRACE.exec_node(i):
-                if cover is None:
-                    # the seed node: its vars hold the lanes' constants, so
-                    # it expands nothing and only probes; its need is the
-                    # live lane count
-                    need_expand[i] = valid.sum(dtype=_I32)
-                    alloc_expand[i] = cap
+        def expand(st, i, k, cover, probes, counted=None, rows=None, other=False):
+            """Iterate `cover` into a capacities[i]-wide frontier: from
+            each lane's group (`counted`: its (base, counts), where a
+            lane-choice node computed them), or, on a tile, as a view of
+            the root relation's rows [lo, hi)."""
+            t = tries[cover.alias]
+            d = st.depth[cover.alias]
+            if rows is not None:
+                lo, hi = rows
+                st.cap = hi - lo
+                note(i, torch.full((), st.cap, dtype=_I32, device=device), st.cap)
+                st.valid = torch.ones(st.cap, dtype=torch.bool, device=device)
+                if t.empty:
+                    st.valid = ~st.valid
+                bind(st, cover.vars, [t.cols[v][lo:hi] for v in cover.vars])
+                st.depth[cover.alias] = 1
+                if t.mult_col is not None:
+                    rm = t.mult_col[lo:hi]
+                    st.mult = torch.where(st.valid, rm, 1)
+                    st.valid = st.valid & (rm > 0)
                 else:
-                    t = tries[cover.alias]
-                    d = depth[cover.alias]
-                    g = gid.get(cover.alias, torch.zeros(cap, dtype=_I32, device=device))
-                    last = d == t.L - 1
-                    # a filtered var can never take the factorized-count shortcut:
-                    # its comparison against the constant needs the bound values
-                    needed = _needed_later_static(plan, k, probes, agg) | set(filter_idx)
-                    if agg == "count" and not (set(cover.vars) & needed) and last and not (
-                        set(cover.vars) & set(bound)
-                    ):
-                        # factorized count (static decision)
-                        mult = mult * torch.where(valid, t.rows_under(d, g), 1)
-                        gid.pop(cover.alias, None)
-                        depth[cover.alias] = t.L
-                    else:
-                        base, counts = t.iter_counts(d, g, last)
-                        counts = torch.where(valid, counts, 0)
-                        fr, member, vnew, total = ops.expand_counted(base, counts, c_next)
-                        need_expand[i] = total
-                        alloc_expand[i] = c_next
-                        frc = fr.clamp(0, cap - 1)
-                        memc = member.clamp(0, max(t.n - 1, 0))
-                        bound = {v: a[frc] for v, a in bound.items()}
-                        gid = {a: arr[frc] for a, arr in gid.items()}
-                        mult = mult[frc]
-                        if fvalid is not None:
-                            fvalid = fvalid[:, frc]
-                        if lane is not None:
-                            lane = torch.where(fr >= 0, lane[frc], no_lane)
-                        valid = vnew
-                        cap = c_next
-                        cols, new_g = t.bind_iter(d, memc, last)
-                        for v, cvals in zip(cover.vars, cols):
-                            if v in bound:  # semijoin on re-bound vars
-                                valid = valid & (bound[v] == cvals)
-                            else:
-                                bound[v] = cvals
-                                if v in filter_idx and filter_kill:  # constant
-                                    # selection the moment the var is bound: dead
-                                    # lanes never reach a probe
-                                    valid = valid & (cvals == filter_consts[filter_idx[v]])
-                                elif v in filter_idx:  # layout-neutral lane mask
-                                    hit = cvals[None, :] == filter_consts[:, filter_idx[v], None]
-                                    fvalid = hit if fvalid is None else fvalid & hit
-                        depth[cover.alias] = d + 1
-                        if new_g is None or depth[cover.alias] == t.L:
-                            # last-level iteration enumerates physical rows, so bag
-                            # multiplicity is already accounted for — except on a
-                            # weighted (stage-output) trie, whose per-row mult folds
-                            # in here and whose mult-0 pad rows die on the spot.
-                            rm = t.iter_mult(memc)
-                            if rm is not None:
-                                mult = mult * torch.where(valid, rm, 1)
-                                valid = valid & (rm > 0)
-                            gid.pop(cover.alias, None)
+                    st.mult = torch.ones(st.cap, dtype=_I32, device=device)
+                return
+            g = st.gid.get(cover.alias, torch.zeros(st.cap, dtype=_I32, device=device))
+            last = d == t.L - 1
+            # a filtered var can never take the factorized-count shortcut:
+            # its comparison against the constant needs the bound values
+            needed = _needed_later_static(plan, k, probes, agg) | set(filter_idx)
+            if agg == "count" and not (set(cover.vars) & needed) and last and not (
+                set(cover.vars) & set(st.bound)
+            ):
+                # factorized count (static decision)
+                st.mult = st.mult * torch.where(st.valid, t.rows_under(d, g), 1)
+                st.gid.pop(cover.alias, None)
+                st.depth[cover.alias] = t.L
+                return
+            c_next = capacities[i]
+            base, counts = counted if counted is not None else t.iter_counts(d, g, last)
+            counts = torch.where(st.valid, counts, 0)
+            fr, member, vnew, total = ops.expand_counted(base, counts, c_next)
+            if st.cap * max(t.n, 1) > _I32_MAX:
+                # a total that may reach 2**31 is summed in int64, so it
+                # reads as itself, never wrapped
+                total = counts.sum(dtype=torch.int64)
+            note(i, total, c_next, other=other)
+            frc = fr.clamp(0, st.cap - 1)
+            memc = member.clamp(0, max(t.n - 1, 0))
+            st.bound = {v: a[frc] for v, a in st.bound.items()}
+            st.gid = {a: arr[frc] for a, arr in st.gid.items()}
+            st.mult = st.mult[frc]
+            if st.fvalid is not None:
+                st.fvalid = st.fvalid[:, frc]
+            if st.lane is not None:
+                st.lane = torch.where(fr >= 0, st.lane[frc], no_lane)
+            st.valid = vnew
+            st.cap = c_next
+            cols, new_g = t.bind_iter(d, memc, last)
+            bind(st, cover.vars, cols)
+            st.depth[cover.alias] = d + 1
+            if new_g is None or st.depth[cover.alias] == t.L:
+                # last-level iteration enumerates physical rows, so bag
+                # multiplicity is already accounted for — except on a
+                # weighted (stage-output) trie, whose per-row mult folds
+                # in here and whose mult-0 pad rows die on the spot.
+                rm = t.iter_mult(memc)
+                if rm is not None:
+                    st.mult = st.mult * torch.where(st.valid, rm, 1)
+                    st.valid = st.valid & (rm > 0)
+                st.gid.pop(cover.alias, None)
+            else:
+                st.gid[cover.alias] = new_g
+
+        def probe(st, i, probes):
+            """The node's probes, compacting at its compact point."""
+            c_compact, cp_idx = compact_to[i], compact_probe[i]
+            compacted = False
+            for j, sa in enumerate(probes):
+                tp = tries[sa.alias]
+                dp = st.depth[sa.alias]
+                gp = st.gid.get(sa.alias, torch.zeros(st.cap, dtype=_I32, device=device))
+                keys = [st.bound[v] for v in sa.vars]
+                child = tp.probe(dp, torch.where(st.valid, gp, -1), keys)
+                st.valid = st.valid & (child >= 0)
+                childc = child.clamp(0, max(tp.n - 1, 0))
+                st.depth[sa.alias] = dp + 1
+                if st.depth[sa.alias] == tp.L:
+                    st.mult = st.mult * torch.where(st.valid, tp.rows_under(tp.L, childc), 1)
+                    st.gid.pop(sa.alias, None)
+                else:
+                    st.gid[sa.alias] = childc
+                if (c_compact is not None and not compacted and j + 1 >= cp_idx
+                        and c_compact < st.cap):
+                    # squeeze dead lanes out mid-node: the remaining probes
+                    # (and all later nodes) run at c_compact
+                    squeeze(st, c_compact, i)
+                    compacted = True
+            if c_compact is not None and not compacted and c_compact < st.cap:
+                # probe-less node (or unreached compact point): after-node
+                squeeze(st, c_compact, i)
+
+        def node(st, i, rows=None):
+            """Run entry i on `st`: the seed node's probes, or a node's
+            cover and probes. At a lane-choice node, only choose: returns
+            each cover's (cover, probes, (base, counts of its lanes alone),
+            whether it is not the first), for the walk to run one after
+            another."""
+            k, cover, probes = schedule[i]
+            if cover is None:
+                # the seed node: its vars hold the lanes' constants, so
+                # it expands nothing and only probes; its need is the
+                # live lane count
+                note(i, st.valid.sum(dtype=_I32), st.cap)
+                probe(st, i, probes)
+                return None
+            covers = choices.get(i)
+            if covers is None:
+                expand(st, i, k, cover, probes, rows=rows)
+                probe(st, i, probes)
+                return None
+            # each lane iterates the cover with the fewest keys under it
+            # (the first listed among equals) and probes the others
+            counted = []
+            for c in covers:
+                t = tries[c.alias]
+                d = st.depth[c.alias]
+                g = st.gid.get(c.alias, torch.zeros(st.cap, dtype=_I32, device=device))
+                counted.append(t.iter_counts(d, g, d == t.L - 1))
+            if len(covers) == 2:
+                second = counted[1][1] < counted[0][1]
+                mine = [~second, second]
+            else:
+                pick = torch.argmin(torch.stack([n for _b, n in counted]), dim=0)
+                mine = [pick == j for j in range(len(covers))]
+            return [
+                (c, tuple(cover if p is c else p for p in probes) if j else probes,
+                 (counted[j][0], torch.where(mine[j], counted[j][1], 0)), j > 0)
+                for j, c in enumerate(covers)
+            ]
+
+        parts = []  # each sub-run's folded result, counts summed as they come
+
+        def walk(st, rows=None):
+            """Run the plan on `st`, sub-run by sub-run: a lane-choice
+            node's covers one after another, each through the rest of the
+            plan and folded before the next expands, so one cover's buffers
+            are live at a time."""
+            todo = [(st, 0, rows, None)]
+            while todo:
+                st, i, rows, group = todo.pop()
+                while i < nsched:
+                    with TRACE.exec_node(i):
+                        if group is None:
+                            groups = node(st, i, rows)
                         else:
-                            gid[cover.alias] = new_g
-                compacted = False
-                for j, sa in enumerate(probes):
-                    tp = tries[sa.alias]
-                    dp = depth[sa.alias]
-                    gp = gid.get(sa.alias, torch.zeros(cap, dtype=_I32, device=device))
-                    keys = [bound[v] for v in sa.vars]
-                    child = tp.probe(dp, torch.where(valid, gp, -1), keys)
-                    valid = valid & (child >= 0)
-                    childc = child.clamp(0, max(tp.n - 1, 0))
-                    depth[sa.alias] = dp + 1
-                    if depth[sa.alias] == tp.L:
-                        mult = mult * torch.where(valid, tp.rows_under(tp.L, childc), 1)
-                        gid.pop(sa.alias, None)
-                    else:
-                        gid[sa.alias] = childc
-                    if (c_compact is not None and not compacted and j + 1 >= cp_idx
-                            and c_compact < cap):
-                        # squeeze dead lanes out mid-node: the remaining probes
-                        # (and all later nodes) run at c_compact
-                        bound, gid, mult, valid, fvalid, lane, cap = squeeze(
-                            bound, gid, mult, valid, fvalid, lane, cap, c_compact, i
-                        )
-                        compacted = True
-                if c_compact is not None and not compacted and c_compact < cap:
-                    # probe-less node (or unreached compact point): after-node
-                    bound, gid, mult, valid, fvalid, lane, cap = squeeze(
-                        bound, gid, mult, valid, fvalid, lane, cap, c_compact, i
-                    )
+                            cover, own, counted, other = group
+                            expand(st, i, schedule[i][0], cover, own, counted=counted,
+                                   other=other)
+                            probe(st, i, own)
+                            groups = None
+                    rows = group = None
+                    if groups:
+                        todo.extend((st.copy(), i, None, g) for g in reversed(groups[1:]))
+                        group = groups[0]
+                        continue
+                    i += 1
+                part = final(st)
+                if agg == "count" and parts:
+                    parts[0] = (parts[0][0] + part[0],)
+                else:
+                    parts.append(part)
+                del st, part
+
+        def final(st):
+            """One sub-run's result: its count (per lane where lanes), or
+            its (bound, valid, mult)."""
+            if batched:
+                return _fold_lanes(agg, st.bound, st.valid, st.mult, st.fvalid, zero, zero,
+                                   filter_consts.shape[0])[: 1 if agg == "count" else 3]
+            if seeded:  # the fold by lane id
+                lanes = filter_consts.shape[0]
+                if agg == "count":
+                    w = torch.where(st.valid, st.mult, 0).to(torch.int64)
+                    return (_sum_by_lane(w, st.lane, lanes),)
+                ids = torch.arange(lanes, dtype=_I32, device=device)
+                mine = st.lane[None, :] == ids[:, None]  # (B, cap): lane i's lanes
+                return _fold_lanes(agg, st.bound, st.valid, st.mult, mine, zero, zero,
+                                   lanes)[:3]
+            if agg == "count":
+                return (torch.where(st.valid, st.mult, 0).sum(dtype=torch.int64),)
+            # lanes that went through a weighted trie's probe path can survive
+            # with mult 0 (pad groups weigh nothing); they are not output rows
+            return st.bound, st.valid & (st.mult > 0), st.mult
+
+        if tiles > 1:
+            n = tries[schedule[0][1].alias].n
+            for t in range(tiles):
+                lo, hi = n * t // tiles, n * (t + 1) // tiles
+                if lo < hi:
+                    with TRACE.exec_tile:
+                        walk(st.copy(), rows=(lo, hi))
+        else:
+            walk(st)
         run.allocated = (alloc_expand, alloc_compact)
+        run.sums = torch.stack([torch.stack(row) for row in sums]) if subruns else None
         ne = torch.stack(need_expand) if nsched else torch.zeros(0, dtype=_I32, device=device)
         nc = torch.stack(need_compact) if nsched else torch.zeros(0, dtype=_I32, device=device)
-        if batched:
-            return _fold_lanes(agg, bound, valid, mult, fvalid, ne, nc, filter_consts.shape[0])
-        if seeded:  # the fold by lane id
-            lanes = filter_consts.shape[0]
-            if agg == "count":
-                w = torch.where(valid, mult, 0).to(torch.int64)
-                counts = _sum_by_lane(w, lane, lanes)
-                return counts, ne.expand(lanes, -1), nc.expand(lanes, -1)
-            ids = torch.arange(lanes, dtype=_I32, device=device)
-            mine = lane[None, :] == ids[:, None]  # (B, cap): lane i's lanes
-            return _fold_lanes(agg, bound, valid, mult, mine, ne, nc, lanes)
-        if agg == "count":
-            return torch.where(valid, mult, 0).sum(dtype=torch.int64), ne, nc
-        # lanes that went through a weighted trie's probe path can survive
-        # with mult 0 (pad groups weigh nothing); they are not output rows
-        valid = valid & (mult > 0)
-        return bound, valid, mult, ne, nc
+        lanes = filter_consts.shape[0] if batched or seeded else None
+        if lanes is not None:  # lane-independent needs, broadcast along the lanes
+            ne, nc = ne.expand(lanes, -1), nc.expand(lanes, -1)
+        out = parts[0]
+        if len(parts) > 1:  # rows of several sub-runs: one after another along the lanes
+            out = tuple(_cat_parts([p[m] for p in parts], 0 if lanes is None else 1)
+                        for m in range(3))
+        return out + (ne, nc)
 
     return run
+
+
+class _Front:
+    """One frontier of an executor call: bound columns, trie group ids,
+    multiplicities, lane liveness, the mask-mode filter mask, the seeded
+    lane ids, its width and each alias's consumed trie depth."""
+
+    __slots__ = ("bound", "gid", "mult", "valid", "fvalid", "lane", "cap", "depth")
+
+    def __init__(self):
+        self.bound, self.gid, self.depth = {}, {}, {}
+        self.mult = self.valid = self.fvalid = self.lane = None
+        self.cap = 0
+
+    def copy(self) -> "_Front":
+        out = _Front()
+        out.bound, out.gid, out.depth = dict(self.bound), dict(self.gid), dict(self.depth)
+        out.mult, out.valid, out.fvalid, out.lane = self.mult, self.valid, self.fvalid, self.lane
+        out.cap = self.cap
+        return out
+
+
+def _cat_parts(parts, dim: int):
+    """Concatenate sub-runs' outputs along the lane axis `dim` (dicts of
+    columns key by key)."""
+    if isinstance(parts[0], dict):
+        return {v: torch.cat([p[v] for p in parts], dim) for v in parts[0]}
+    return torch.cat(parts, dim)
 
 
 def _sum_by_lane(values, lane, lanes: int) -> torch.Tensor:
@@ -1217,7 +1455,9 @@ def make_chain_executor(
 
     After each call `run.allocated` holds, per stage, its executor's
     `allocated` sizes and how many times the stage ran: once, or once a
-    lane after the lanes split."""
+    lane after the lanes split; `run.sums` per stage its executor's
+    `sums` (None for a stage of one sub-run), summed over those runs. A
+    stage runs in its CapacityPlan's `tiles`."""
     if not len(stages) == len(cap_plans) >= 1:
         raise ValueError("one capacity plan per stage")
     filter_vars = tuple(filter_vars)
@@ -1240,6 +1480,7 @@ def make_chain_executor(
                 schedule=cp.schedule,
                 filters=stage_filters,
                 filter_kill=filter_kill,
+                tiles=getattr(cp, "tiles", 1),
             )
         )
     if unassigned:
@@ -1250,7 +1491,7 @@ def make_chain_executor(
             return run_lanes(rel_data, filter_consts)
         cols = dict(rel_data)
         stage_mults: dict[str, torch.Tensor] = {}
-        nes, ncs = [], []
+        nes, ncs, sums = [], [], []
         for (name, plan), fn in zip(stages[:-1], fns[:-1]):
             bound, valid, mult, ne, nc = fn(cols, stage_mults, filter_consts)
             head = plan.query.head
@@ -1258,10 +1499,13 @@ def make_chain_executor(
             stage_mults[name] = torch.where(valid, mult, 0)
             nes.append(ne)
             ncs.append(nc)
+            sums.append(fn.sums)
         out = fns[-1](cols, stage_mults, filter_consts)
         nes.append(out[-2])
         ncs.append(out[-1])
+        sums.append(fns[-1].sums)
         run.allocated = tuple((fn.allocated, 1) for fn in fns)
+        run.sums = tuple(sums)
         return out[:-2] + (tuple(nes), tuple(ncs))
 
     def lane_of(out, b: int):
@@ -1281,17 +1525,20 @@ def make_chain_executor(
     def run_lanes(rel_data, filter_consts):
         lanes = filter_consts.shape[0]
         envs = [(dict(rel_data), {})]  # one shared, or one per lane once split
-        nes, ncs = [], []
+        nes, ncs, sums = [], [], []
         runs = []  # per stage: one run for every lane, or one per lane once split
         for i, ((name, plan), fn) in enumerate(zip(stages, fns)):
             split = len(envs) > 1
             runs.append(len(envs))
-            outs = []
+            outs, stage_sums = [], None
             for b, (cols, stage_mults) in enumerate(envs):
                 fc = None
                 if filtered[i]:
                     fc = filter_consts[b : b + 1] if split else filter_consts
                 outs.append(fn(cols, stage_mults, fc))
+                if fn.sums is not None:
+                    stage_sums = fn.sums if stage_sums is None else stage_sums + fn.sums
+            sums.append(stage_sums)
             nes.append(lane_needs([o[-2] for o in outs], lanes))
             ncs.append(lane_needs([o[-1] for o in outs], lanes))
             if i == len(stages) - 1:
@@ -1318,6 +1565,7 @@ def make_chain_executor(
                 torch.stack([p[2] for p in per]),
             )
         run.allocated = tuple((fn.allocated, r) for fn, r in zip(fns, runs))
+        run.sums = tuple(sums)
         return root + (tuple(nes), tuple(ncs))
 
     return run
@@ -1575,25 +1823,67 @@ class AdaptiveExecutor:
         growth follows the max over lanes."""
         return need.max(axis=0) if need.ndim == 2 else need
 
-    @staticmethod
-    def _count_lanes(allocated, needs_e, needs_c) -> None:
+    def _count_lanes(self, allocated, needs_e, needs_c, sums) -> None:
         """Add one run's frontier buffers to TRACE's lane counters: each
         buffer's lanes (an expansion's capacity, a compaction's target) to
         `lanes_allocated`, the live ones among them (its need, at most its
-        size) to `lanes_live`. allocated: per stage, (per-node sizes, runs)
-        as the chain executor reports it; a stage run once for all lanes
-        of a batch reads its lane-independent first need row, a stage run
-        once per lane each lane's row."""
-        live = total = 0
-        for ((sizes_e, sizes_c), runs), ne, nc in zip(allocated, needs_e, needs_c):
+        size) to `lanes_live`, and each expansion's need to
+        `lanes_expanded` (at lane-choice nodes to `lanes_multi_cover` too,
+        and from a cover other than the first to `lanes_other_cover`).
+        allocated: per stage, (per-node sizes, runs) as the chain executor
+        reports it; a stage run once for all lanes of a batch reads its
+        lane-independent first need row, a stage run once per lane each
+        lane's row, and a stage of several sub-runs (tiles, lane-choice
+        covers) its own sums over them."""
+        live = total = expanded = multi = other = 0
+        for ((sizes_e, sizes_c), runs), ne, nc, sm, sched in zip(
+            allocated, needs_e, needs_c, sums, self.schedules
+        ):
+            grows = [cover is not None for _k, cover, _p in sched.entries]
+            total += runs * (sum(sizes_e) + sum(sizes_c))
+            if sm is not None:
+                live += int(sm[:, 2].sum() + sm[:, 3].sum())
+                expanded += int(sm[grows, 0].sum())
+                multi += int(sm[list(sched.choices), 0].sum())
+                other += int(sm[:, 1].sum())
+                continue
             for sizes, need in ((sizes_e, ne), (sizes_c, nc)):
                 if not sizes:
                     continue
                 for row in need.reshape(-1, len(sizes))[:runs].tolist():
                     live += sum(min(n, c) for n, c in zip(row, sizes))
-                total += runs * sum(sizes)
+                    if sizes is sizes_e:
+                        expanded += sum(n for n, g in zip(row, grows) if g)
         TRACE.lanes_live += live
         TRACE.lanes_allocated += total
+        TRACE.lanes_expanded += expanded
+        TRACE.lanes_multi_cover += multi
+        TRACE.lanes_other_cover += other
+
+    def _grow(self, chain, s: int, i: int, need: int, sums):
+        """The chain with stage s's node i grown to `need` lanes. A node
+        run in several sub-runs is sized from their mean with
+        TILE_SLACK's room where that exceeds the largest (the tiles' sizes
+        then follow the relation, not the order of its rows). A need past
+        the lane budget (capacity.lane_budget) runs the stage in more
+        tiles, where its plan can tile; past what one buffer can index it
+        raises where it cannot."""
+        from repro_torch.core.capacity import INDEX_LIMIT, TILE_SLACK, _round_block, lane_budget
+
+        cp = chain.stages[s]
+        runs = cp.schedule.runs(cp.tiles)[i]
+        if sums is not None and runs > 1:
+            need = max(need, -(-int(TILE_SLACK * int(sums[i, 0])) // runs))
+        limit = lane_budget(self.device)
+        if _round_block(need, cp.block) > limit and cp.schedule.tileable():
+            tiles = max(2 * cp.tiles, -(-5 * cp.tiles * need // (4 * limit)))
+            return chain.retile(s, tiles)
+        if need > INDEX_LIMIT:
+            raise RuntimeError(
+                f"stage {s} node {i} needs {need} frontier lanes, more than one buffer can "
+                f"index ({INDEX_LIMIT}), and its plan cannot run in tiles"
+            )
+        return chain.grow_to(s, i, need)
 
     def _check_quota(self, chain, s: int, i: int, need: int, per_lane: np.ndarray) -> None:
         from repro_torch.core.capacity import CapacityQuotaError, _round_block
@@ -1649,17 +1939,27 @@ class AdaptiveExecutor:
                 out = self._enqueue(fn, rel_data, filter_consts, live)
             # ONE device-to-host copy for the control plane: the per-stage
             # need vectors (per lane when batched) drive host-side
-            # overflow/tighten decisions. Results stay on the device until
-            # the caller reads them.
+            # overflow/tighten decisions, and a stage of several sub-runs
+            # adds its sums. Results stay on the device until the caller
+            # reads them.
             sizes = [ne.shape[-1] for ne in out[-2]]
-            host = torch.cat([t.reshape(rows, -1) for t in out[-2] + out[-1]], dim=1)
+            sums = getattr(fn, "sums", None) or (None,) * len(sizes)
+            host = torch.cat(
+                [t.reshape(rows, -1) for t in out[-2] + out[-1]]
+                + [t.reshape(1, -1).expand(rows, -1) for t in sums if t is not None],
+                dim=1,
+            )
+            widths = sizes + sizes + [4 * n for t, n in zip(sums, sizes) if t is not None]
             parts = np.split(
-                TRANSFERS.to_host(host, "needs"), np.cumsum(sizes + sizes)[:-1], axis=1
+                TRANSFERS.to_host(host, "needs"), np.cumsum(widths)[:-1], axis=1
             )
             if not self.batch:
                 parts = [p[0] for p in parts]
-            needs_e, needs_c = parts[: len(sizes)], parts[len(sizes):]
-            self._count_lanes(fn.allocated, needs_e, needs_c)
+            needs_e, needs_c = parts[: len(sizes)], parts[len(sizes): 2 * len(sizes)]
+            rest = iter(parts[2 * len(sizes):])
+            sums = [None if t is None else next(rest).reshape(-1, 4 * n)[0].reshape(n, 4)
+                    for t, n in zip(sums, sizes)]
+            self._count_lanes(fn.allocated, needs_e, needs_c, sums)
             grown = chain
             for s, (cp, ne_l, nc_l) in enumerate(zip(chain.stages, needs_e, needs_c)):
                 ne, nc = self._reduced(ne_l), self._reduced(nc_l)
@@ -1668,7 +1968,7 @@ class AdaptiveExecutor:
                     grown = grown.grow_to(s, int(i), int(nc[i]), compaction=True)
                 for i in np.flatnonzero(oe):
                     self._check_quota(chain, s, int(i), int(ne[i]), ne_l)
-                    grown = grown.grow_to(s, int(i), int(ne[i]))
+                    grown = self._grow(grown, s, int(i), int(ne[i]), sums[s])
             if grown is not chain:
                 if self._govern_token is not None:
                     # growth must fit the device-memory budget: a shed here
@@ -1704,7 +2004,9 @@ class AdaptiveExecutor:
                 membudget.GOVERNOR.account(self._govern_token, self.frontier_nbytes(chain))
             # stash the measured per-node expansion needs: exact frontier
             # lane counts, the optimizer's measured-cardinality feedback
-            self._last_needs = tuple(self._reduced(ne) for ne in needs_e)
+            self._last_needs = tuple(
+                self._reduced(ne) if sm is None else sm[:, 0] for ne, sm in zip(needs_e, sums)
+            )
             result = out[:-2]
             return result[0] if self.agg == "count" else result
         raise RuntimeError(
@@ -1714,9 +2016,10 @@ class AdaptiveExecutor:
     def _node_feedback_specs(self):
         """Per stage, per executed node: the (alias, consumed-vars) multiset
         whose joined cardinality that node's need_expand measures — or None
-        when the measurement is not a joined-prefix size. Two exclusions:
+        when the measurement is not a joined-prefix size. Three exclusions:
         a cover that re-binds an already-bound variable (the executor
-        semijoins AFTER expanding, so the count is pre-equate), and a stage
+        semijoins AFTER expanding, so the count is pre-equate), a
+        lane-choice node (each lane expands its smallest cover), and a stage
         alias whose consumed prefix is not the stage's full head (device-
         only output, no base-relation equivalent). A fully-consumed stage
         alias substitutes its own atoms' full specs, recursively, so every
@@ -1730,8 +2033,10 @@ class AdaptiveExecutor:
             prefix: dict[str, tuple[str, ...]] = {a: () for a in aliases}
             bound: set[str] = set()
             per_node = []
-            for _k, cover, probes in sched.entries:
-                rebinds = bool(set(cover.vars) & bound)
+            for i, (_k, cover, probes) in enumerate(sched.entries):
+                # a lane-choice node's lanes are each lane's smallest
+                # cover's, not the size of a joined prefix
+                rebinds = bool(set(cover.vars) & bound) or i in sched.choices
                 prefix[cover.alias] = prefix[cover.alias] + tuple(cover.vars)
                 bound |= set(cover.vars)
                 spec: list | None = None if rebinds else []
@@ -1881,6 +2186,7 @@ class SeededExecutor(AdaptiveExecutor):
         def run(rel_data, filter_consts, live):  # the chain executor's contract
             out = fn(rel_data, None, filter_consts, live=live)
             run.allocated = ((fn.allocated, 1),)
+            run.sums = (fn.sums,)
             return out[:-2] + ((out[-2],), (out[-1],))
 
         return run

@@ -39,6 +39,18 @@ The paper uses DuckDB's optimizer; plan choice here is our own. Three layers, ea
    re-ranked best is decisively cheaper (`adopt_margin`) — it re-plans
    exactly when the measurements contradict the estimates.
 
+4. **Split.** `choose_split` takes a stage plan's split form
+   (plan.split_lookups: a partly bound lookup cut into a probe one node
+   earlier and a further cover, chosen per lane) where its lanes, with
+   the split's own passes counted, are estimated a fifth fewer than the
+   plan's.
+   The estimate reads per-key row counts (`key_counts`, memoized per
+   relation column beside the distinct counts), so a hub's lanes weigh
+   what they cost: a node's lanes are its input lanes times the mean,
+   over the keys the lanes carry, of the rows its cover holds under each
+   key (the least over the covers, taken as independent, where each lane
+   chooses).
+
 `bad=True` reproduces the paper's Sec 5.4 hijack — every cardinality
 estimate is pinned to 1 — under which the greedy search degenerates to
 input order and we emit a *bushy* balanced tree (the paper observes DuckDB
@@ -54,10 +66,27 @@ from dataclasses import dataclass
 import numpy as np
 
 from repro_torch.core import relcache
-from repro_torch.core.plan import BinaryPlan, FreeJoinPlan, linear
+from repro_torch.core.plan import BinaryPlan, FreeJoinPlan, linear, split_lookups
 from repro_torch.core.trace import TRACE
 from repro_torch.relational.relation import Relation
 from repro_torch.relational.schema import Atom, Query
+
+
+def key_counts(rel, vs: tuple[str, ...]):
+    """The distinct values of `rel`'s columns `vs` (sorted; one void
+    scalar a row when there are several columns) and their row counts,
+    memoized on the relation and its first column object."""
+
+    def compute():
+        with TRACE.plan_distinct:
+            if len(vs) == 1:
+                return np.unique(rel.columns[vs[0]], return_counts=True)
+            rows = np.ascontiguousarray(np.stack([rel.columns[v] for v in vs], axis=1),
+                                        dtype=np.int64)
+            rows = rows.view(np.dtype((np.void, 8 * rows.shape[1]))).ravel()
+            return np.unique(rows, return_counts=True)
+
+    return relcache.memo(relcache.REGISTRY, rel, "key_counts", vs, rel.columns[vs[0]], compute)
 
 
 class Est:
@@ -123,6 +152,14 @@ class Stats:
         identity, so only alias with a real object can use the store)."""
         return self.relations.get(alias)
 
+    def key_counts(self, alias: str, var: str):
+        """(keys, row counts) of one column (module function key_counts),
+        or None for an alias with no host relation or a mutating one."""
+        rel = self.relations.get(alias)
+        if rel is None or relcache.mutation_state(rel) is not None:
+            return None
+        return key_counts(rel, (var,))
+
 
 class StageStats:
     """Statistics view that also answers for *planned* stage outputs —
@@ -156,6 +193,11 @@ class StageStats:
         if alias in self._stage:
             return None
         return self.base.relation_of(alias)
+
+    def key_counts(self, alias: str, var: str):
+        if alias in self._stage:
+            return None
+        return self.base.key_counts(alias, var)
 
 
 class FilteredStats:
@@ -197,6 +239,12 @@ class FilteredStats:
         if alias in self.filtered:
             return None
         return self.base.relation_of(alias)
+
+    def key_counts(self, alias: str, var: str):
+        # per-key counts of a filtered atom follow its constant
+        if alias in self.filtered:
+            return None
+        return self.base.key_counts(alias, var)
 
 
 def stage_est(atoms: list[Atom], stats) -> Est:
@@ -344,6 +392,131 @@ def prefix_card(
     return 1.0 if cur is None else cur.card
 
 
+# The split's own passes over a lane-choice node's input lanes, counted in
+# lanes against the lanes it saves: the moved lookup's probe one node
+# earlier, the read of the second cover's size, the choice, and the scan
+# of the input by the second cover's expansion.
+SPLIT_INPUT_PASSES = 4.0
+# The split is taken only where it saves a fifth of the lanes, passes
+# counted: its estimate takes the covers' sizes as independent, and each
+# split atom adds a trie level; a uniform table's spread of sizes saves a
+# few percent (GAP's urand at scale 18: 9.7 % before the passes).
+SPLIT_MARGIN = 0.8
+
+
+def _walk(schedule):
+    """Per schedule entry, what was consumed before it: each alias's level
+    vars (prefix) and, for each bound var, the alias whose cover bound it
+    and whether that level enumerates the alias's rows (its last level)."""
+    prefix = {a: () for a in schedule.level_ops}
+    depth = {a: 0 for a in schedule.level_ops}
+    binder: dict[str, tuple[str, bool]] = {}
+    out = []
+    for _k, cover, probes in schedule.entries:
+        out.append((dict(prefix), dict(binder)))
+        for sa in ((cover,) if cover is not None else ()) + tuple(probes):
+            depth[sa.alias] += 1
+            prefix[sa.alias] = prefix[sa.alias] + tuple(sa.vars)
+            if sa is cover:
+                rows = depth[sa.alias] == len(schedule.level_ops[sa.alias].levels)
+                for v in sa.vars:
+                    binder.setdefault(v, (sa.alias, rows))
+    return out
+
+
+def _size_dist(cover, prefix, binder, stats):
+    """(sizes, weights): over a node's input lanes, the rows `cover` holds
+    under each lane's key, weighted by how many lanes carry that key.
+    Skew-aware where the cover's alias has consumed one single-var level
+    whose var another alias's cover bound (both with host key counts);
+    else one mean size."""
+    before = prefix[cover.alias]
+    counts = getattr(stats, "key_counts", None)
+    if counts is not None and len(before) == 1 and before[0] in binder:
+        u = before[0]
+        other, rows = binder[u]
+        mine, theirs = counts(cover.alias, u), counts(other, u)
+        if mine is not None and theirs is not None and len(mine[0]) and len(theirs[0]):
+            (keys, cnt), (lane_keys, lane_cnt) = mine, theirs
+            at = np.minimum(np.searchsorted(keys, lane_keys), len(keys) - 1)
+            size = np.where(keys[at] == lane_keys, cnt[at], 0).astype(np.float64)
+            weight = lane_cnt.astype(np.float64) if rows else np.ones(len(lane_keys))
+            live = size > 0
+            if live.any():
+                return size[live], weight[live]
+    if before:
+        mean = float(max(1, stats.size(cover.alias)))
+        for v in before:
+            mean /= max(1.0, stats.distinct(cover.alias, v))
+    else:
+        mean = prefix_card({cover.alias: tuple(cover.vars)}, stats)
+    return np.array([max(1.0, mean)]), np.ones(1)
+
+
+def _expected_min(dists) -> float:
+    """E[min_j X_j] of independent nonnegative X_j given as (values,
+    weights): the sum over thresholds t of prod_j P(X_j >= t)."""
+    if len(dists) == 1:
+        x, w = dists[0]
+        return float((x * w).sum() / w.sum())
+    ts = np.unique(np.concatenate([x for x, _w in dists]))
+    surv = np.ones(len(ts))
+    for x, w in dists:
+        order = np.argsort(x, kind="stable")
+        xs, tail = x[order], np.cumsum(w[order][::-1])[::-1] / w.sum()
+        at = np.searchsorted(xs, ts)  # first value >= t
+        surv *= np.where(at < len(xs), tail[np.minimum(at, len(xs) - 1)], 0.0)
+    return float((np.diff(ts, prepend=0.0) * surv).sum())
+
+
+def node_lanes(schedule, i: int, lanes_in: float, stats, walk=None) -> float:
+    """Estimated lanes entry i of `schedule` expands from `lanes_in` input
+    lanes: each lane iterates its node's cover, or at a lane-choice node
+    the one of its covers with the fewest rows under its key."""
+    prefix, binder = (walk or _walk(schedule))[i]
+    covers = schedule.choices.get(i) or (schedule.entries[i][1],)
+    return lanes_in * _expected_min([_size_dist(c, prefix, binder, stats) for c in covers])
+
+
+def choose_split(plan: FreeJoinPlan, stats: Stats) -> FreeJoinPlan:
+    """`plan` or its split form (plan.split_lookups), whichever the
+    estimate says expands fewer lanes, the split's passes over each
+    lane-choice node's input lanes counted (SPLIT_INPUT_PASSES), by
+    SPLIT_MARGIN. Only plans whose every alias has a host relation are
+    considered. It runs on a runner-cache miss, and its per-key counts
+    (key_counts) are memoized per relation column, so a repeated query
+    recomputes nothing."""
+    if any(stats.relation_of(a) is None for a in plan.partitions()):
+        return plan
+    split = split_lookups(plan)
+    if split is None:
+        return plan
+    before, after = split_lanes(plan, split, stats)
+    return split if after < SPLIT_MARGIN * before else plan
+
+
+def split_lanes(plan: FreeJoinPlan, split: FreeJoinPlan, stats) -> tuple[float, float]:
+    """(the plan's, the split form's) estimated lanes over the nodes the
+    split makes lane-choice nodes, the split's passes counted."""
+    from repro_torch.core.compiled import _static_schedule  # deferred: avoids a cycle
+
+    mine, theirs = _static_schedule(plan), _static_schedule(split)
+    est_mine = estimate_prefixes(plan, stats=stats, schedule=mine)
+    est_theirs = estimate_prefixes(split, stats=stats, schedule=theirs)
+    walk_mine, walk_theirs = _walk(mine), _walk(theirs)
+    at_mine = {k: i for i, (k, _c, _p) in enumerate(mine.entries)}
+    before = after = 0.0
+    for i, (k, _c, _p) in enumerate(theirs.entries):
+        if i not in theirs.choices or k in plan.lane_choice:
+            continue
+        j = at_mine[k]
+        lanes_in = est_mine[j - 1].after if j else 1.0
+        before += node_lanes(mine, j, lanes_in, stats, walk_mine)
+        lanes_in = est_theirs[i - 1].after if i else 1.0
+        after += est_theirs[i].expand + SPLIT_INPUT_PASSES * lanes_in
+    return before, after
+
+
 def estimate_prefixes(
     plan: FreeJoinPlan,
     relations: dict[str, Relation] | None = None,
@@ -361,7 +534,10 @@ def estimate_prefixes(
     keeps the standalone surface working (stats built here). `feedback`
     replaces individual prefix estimates with measured cardinalities from
     prior runs where available (see prefix_card). A seeded plan's first
-    node (no cover) expands nothing: its frontier is one lane a query."""
+    node (no cover) expands nothing: its frontier is one lane a query. A
+    lane-choice node's expansion is node_lanes' (each lane its smallest
+    cover, sized from per-key counts: the independence estimate misses
+    what hubs make)."""
     from repro_torch.core.compiled import _static_schedule  # deferred: avoids a cycle
 
     if stats is None:
@@ -371,12 +547,17 @@ def estimate_prefixes(
     aliases = {sa.alias for node in plan.nodes for sa in node}
     prefix: dict[str, tuple[str, ...]] = {a: () for a in aliases}
     out: list[NodeEstimate] = []
-    for k, cover, probes in schedule.entries:
+    walk = _walk(schedule) if schedule.choices else None
+    for i, (k, cover, probes) in enumerate(schedule.entries):
         if cover is None:
             expand = 1.0
         else:
             prefix[cover.alias] = prefix[cover.alias] + tuple(cover.vars)
-            expand = prefix_card(prefix, stats, feedback)
+            if i in schedule.choices:
+                lanes_in = out[-1].after if out else 1.0
+                expand = node_lanes(schedule, i, lanes_in, stats, walk)
+            else:
+                expand = prefix_card(prefix, stats, feedback)
         cards = []
         for sa in probes:
             prefix[sa.alias] = prefix[sa.alias] + tuple(sa.vars)

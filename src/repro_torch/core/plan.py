@@ -9,6 +9,14 @@ The nodes must partition every atom's variables (Def 3.5), and a valid plan
 A *seeded* plan (`seed_plan`) serves a point query: its first node holds
 the filter variables, bound by the request's constants before the plan
 runs, so that node has no cover and only probes.
+
+A *split* plan (`split_lookups`) cuts a lookup whose variables are partly
+bound before its node into its bound part, probed one node earlier, and
+its rest, a further cover of the node: `K3(c,a)` under new var `c`
+becomes `K3(a)` in the node before and `K3(c)` beside the cover `K2(c)`,
+the Generic Join shape of that node. The plan lists such nodes in
+`lane_choice`: the executor lets each lane iterate whichever of the
+node's covers holds the fewest keys under it and probe the others.
 """
 from __future__ import annotations
 
@@ -32,10 +40,23 @@ class FreeJoinPlan:
     nodes: list[list[Subatom]]
     # node 0 holds vars bound by constants before the plan runs (seed_plan)
     seeded: bool = False
+    # nodes whose lanes each iterate the cover with the fewest keys under
+    # them (split_lookups), written {...} in str(plan)
+    lane_choice: tuple[int, ...] = ()
 
     def __str__(self):
-        body = "[" + ", ".join("[" + ", ".join(map(str, n)) + "]" for n in self.nodes) + "]"
+        def node(k, n):
+            body = ", ".join(map(str, n))
+            return "{" + body + "}" if k in self.lane_choice else "[" + body + "]"
+
+        body = "[" + ", ".join(node(k, n) for k, n in enumerate(self.nodes)) + "]"
         return "seeded " + body if self.seeded else body
+
+    def choice_covers(self, k: int) -> list[Subatom]:
+        """The covers a lane of lane-choice node k chooses among: its
+        subatoms whose vars are exactly the node's new vars."""
+        new = self.vs(k) - self.avs(k)
+        return [sa for sa in self.nodes[k] if sa.vars and set(sa.vars) == new]
 
     # ---- derived info -------------------------------------------------
     def vs(self, k: int) -> set[str]:
@@ -88,6 +109,15 @@ class FreeJoinPlan:
                     "node-missing-cover",
                     k,
                     f"node {k} has no cover: new vars {self.vs(k) - self.avs(k)}",
+                )
+        for k in self.lane_choice:
+            if not 0 <= k < len(self.nodes) or (self.seeded and k == 0) or len(
+                self.choice_covers(k)
+            ) < 2:
+                yield (
+                    "choice-without-covers",
+                    k,
+                    f"lane-choice node {k} has fewer than two covers of its new vars",
                 )
 
     def validate(self) -> None:
@@ -216,7 +246,8 @@ def seed_plan(plan: FreeJoinPlan, filter_vars) -> FreeJoinPlan | None:
                 first.setdefault(sa.alias, sa)
     seed: list[Subatom] = []
     nodes: list[list[Subatom]] = []
-    for node in plan.nodes:
+    kept_at: dict[int, int] = {}  # a node's index in the seeded plan
+    for k, node in enumerate(plan.nodes):
         kept = []
         for sa in node:
             held = tuple(v for v in sa.vars if v in fv)
@@ -228,7 +259,44 @@ def seed_plan(plan: FreeJoinPlan, filter_vars) -> FreeJoinPlan | None:
             kept.append(sa)
         if kept:
             nodes.append(kept)
-    out = FreeJoinPlan(plan.query, [seed] + nodes, seeded=True)
+            kept_at[k] = len(nodes)
+    # lane-choice nodes keep their choice where the seed left them
+    choice = tuple(kept_at[k] for k in plan.lane_choice if k in kept_at)
+    out = FreeJoinPlan(plan.query, [seed] + nodes, seeded=True, lane_choice=choice)
+    out.validate()
+    return out
+
+
+def split_lookups(plan: FreeJoinPlan) -> FreeJoinPlan | None:
+    """The split form of `plan` (module docstring), or None where no
+    lookup splits. A lookup of node k >= 1 splits when its vars hold all of
+    the node's new vars and some bound before the node, its atom has no
+    subatom in node k - 1, and the node keeps its first cover: the bound
+    part is appended to node k - 1 as a probe, the rest stays in node k as
+    a further cover, and node k becomes a lane-choice node."""
+    if plan.seeded:
+        return None
+    nodes = [list(n) for n in plan.nodes]
+    choice = set(plan.lane_choice)
+    for k in range(1, len(nodes)):
+        new = plan.vs(k) - plan.avs(k)
+        if not new or k in choice:
+            continue
+        cover = next((sa for sa in plan.nodes[k] if sa.vars and set(sa.vars) == new), None)
+        if cover is None:
+            continue
+        for i, sa in enumerate(nodes[k]):
+            bound = tuple(v for v in sa.vars if v not in new)
+            if sa is cover or not bound or not new <= set(sa.vars):
+                continue
+            if any(o.alias == sa.alias for o in nodes[k - 1]):
+                continue
+            nodes[k - 1].append(Subatom(sa.alias, bound))
+            nodes[k][i] = Subatom(sa.alias, tuple(v for v in sa.vars if v in new))
+            choice.add(k)
+    if choice == set(plan.lane_choice):
+        return None
+    out = FreeJoinPlan(plan.query, nodes, lane_choice=tuple(sorted(choice)))
     out.validate()
     return out
 

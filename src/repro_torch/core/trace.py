@@ -2,7 +2,8 @@
 
 A span is a named interval of host time at a layer boundary: a query
 (`compiled_free_join`), planning, the trie cache, each call of the built
-executor and each of its nodes, each counted host/device crossing, and
+executor and each of its tiles and nodes, each counted host/device
+crossing, and
 the serving engine's steps and dispatches (NAMES lists them all). Spans
 nest, one stack of open spans per thread, so each knows its parent.
 
@@ -30,7 +31,13 @@ Two tiers, on the same spans:
 The tracer keeps no event list of its own: a profiler session's events
 are the timeline, and `idle_by_span` reads where the device idled from
 them. `lanes_live` and `lanes_allocated` count the frontier lanes the
-compiled executor filled and allocated (core/compiled.py);
+compiled executor filled and allocated (core/compiled.py), and
+`lanes_expanded` the lanes its expansions made, its needs' totals summed
+over every node and sub-run of every run; `lanes_multi_cover` counts
+those made at lane-choice nodes, where each lane iterates its smallest
+cover, and `lanes_other_cover` those of them made by a cover other than
+the node's first listed. `exec.tile` is one tile of a call that runs its
+first node's rows in tiles (none where a call is one tile);
 `seeded_dispatches` counts the calls of its seeded-lanes runner
 (compiled.SeededExecutor), so that over `serve.dispatch`'s count it is the
 share of the serving engine's dispatches that took seeded lanes.
@@ -61,6 +68,7 @@ _SPECS = (
     ("exec.tries", (), False),
     ("tries.build", (), False),
     ("exec.enqueue", (), False),
+    ("exec.tile", (), False),
     ("exec.node", ("node",), False),
     ("exec.sync", ("kind", "what"), False),
     ("exec.feedback", (), False),
@@ -166,6 +174,9 @@ class Tracer:
     def __init__(self):
         self.lanes_live = 0  # frontier lanes filled, every buffer of every run
         self.lanes_allocated = 0  # and allocated
+        self.lanes_expanded = 0  # lanes the expansions made
+        self.lanes_multi_cover = 0  # of them at lane-choice nodes
+        self.lanes_other_cover = 0  # of those by a cover other than the first
         self.seeded_dispatches = 0  # calls of a seeded-lanes runner
         self.spans: dict[str, Span] = {}
         for name, keys, owns in _SPECS:

@@ -386,3 +386,71 @@ def test_seeded_dispatches_count_the_seeded_calls():
     seeded = TRACE.seeded_dispatches
     compiled_free_join(q, rels, filters={"x": 3}, options=CPU)
     assert counts == [(2, 2), (0, 2)] and TRACE.seeded_dispatches == seeded
+
+
+def kron_views(scale=7):
+    """q1's three views of GAP's kron graph (perfbench/datasets/gap_kron.py):
+    hub-skewed, so the plan splits K3(c,a) and node 1 chooses per lane."""
+    from perfbench.datasets import gap_kron
+
+    cols = gap_kron.generate({"scale": scale, "degree": 16, "structure_seed": 0,
+                              "initiator": {"A": 0.57, "B": 0.19, "C": 0.19, "D": 0.05}},
+                             3)["knows"]
+    a, b = cols["a"], cols["b"]
+    q = Query([Atom("knows", ("a", "b"), "K1"), Atom("knows", ("b", "c"), "K2"),
+               Atom("knows", ("c", "a"), "K3")])
+    rels = {"K1": Relation("knows", {"a": a, "b": b}), "K2": Relation("knows", {"b": a, "c": b}),
+            "K3": Relation("knows", {"c": a, "a": b})}
+    return q, rels, a, b
+
+
+def test_expanded_and_cover_counters_against_a_hand_count():
+    """A warm q1 over the kron graph: node 0 expands every row; node 1's
+    lanes iterate K2(c) under b (deg b rows) or, where it holds fewer,
+    K3(c) under a (deg a rows). lanes_expanded counts both nodes' lanes,
+    lanes_multi_cover node 1's, lanes_other_cover those K3(c) made."""
+    q, rels, a, b = kron_views()
+    info = {}
+    compiled_free_join(q, rels, options=CPU, info=info)
+    assert info["runner"].plan.lane_choice == (1,)
+    before = (TRACE.lanes_expanded, TRACE.lanes_multi_cover, TRACE.lanes_other_cover,
+              TRACE.lanes_live, TRACE.lanes_allocated)
+    compiled_free_join(q, rels, options=CPU, info=info)
+    got = [x - y for x, y in zip((TRACE.lanes_expanded, TRACE.lanes_multi_cover,
+                                  TRACE.lanes_other_cover, TRACE.lanes_live,
+                                  TRACE.lanes_allocated), before)]
+    deg = np.bincount(a)
+    da, db = deg[a], deg[b]
+    other = da < db
+    node1 = int(np.minimum(da, db).sum())
+    assert got[:3] == [len(a) + node1, node1, int(da[other].sum())]
+    cp = info["cap_plan"]
+    assert got[3] == len(a) + node1  # nothing overflowed: every lane live
+    assert got[4] == cp.capacities[0] + 2 * cp.capacities[1]  # node 1: a buffer a cover
+
+
+def test_tile_spans_and_their_lanes(monkeypatch):
+    """Under a memory budget the kron q1 runs in tiles (the floor under
+    which no plan tiles lowered to reach this size): one `exec.tile` span
+    a tile, under the call's `exec.enqueue`, each holding its nodes'
+    spans; the lanes add up to the untiled call's."""
+    from repro_torch.core import capacity, membudget
+
+    monkeypatch.setattr(capacity, "TILE_MIN_LANES", 1)
+
+    q, rels, a, b = kron_views()
+    deg = np.bincount(a)
+    want = len(a) + int(np.minimum(deg[a], deg[b]).sum())
+    info = {}
+    with membudget.budget(want // 2 * capacity.LANE_BYTES):
+        compiled_free_join(q, rels, options=CPU, info=info)
+        tiles = info["cap_plan"].tiles
+        assert tiles > 1
+        before = TRACE.lanes_expanded
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            compiled_free_join(q, rels, options=CPU, info=info)
+    assert TRACE.lanes_expanded - before == want
+    spans = program_spans(prof)
+    assert sum(1 for s in spans if s[0] == "exec.tile") == tiles
+    assert {p for n, p, *_r in spans if n == "exec.tile"} == {"exec.enqueue"}
+    assert {p for n, p, *_r in spans if n == "exec.node"} == {"exec.tile"}
