@@ -256,8 +256,9 @@ Phases (any failure raises, and the script exits non-zero):
      at b[0] and b[N-1], Q = 1; for K1 its contract's corners at key
      widths 1 to 5, hash_probe_corners, with `slots` also a view one
      element into its storage, and tiled to a call large enough for K1's
-     large-call kernel).
-     K1 also on its two other timed shapes; K5 on its two: the reference's kern.intersect.100k
+     large-call kernel, each also with its query rows column-major and
+     as a column-major view into a larger buffer, query_layout).
+     K1 also on its four other timed shapes; K5 on its two: the reference's kern.intersect.100k
      (100,000 sorted queries into the distinct keys of 100,000 draws from
      [0, 2^30)) and large N (4,194,304 queries, half members, into
      2,097,152 distinct keys from [0, 2^24)); every K5 input is held
@@ -281,9 +282,11 @@ Phases (any failure raises, and the script exits non-zero):
      --timing-child IN OUT, on the parent's captured inputs): sessions of
      the main process lose events as it ages. A `profiler:` line gives
      each process's sessions, leads lost and reruns. K5's record holds its two other shapes
-     under "shapes", K1's two (the star's probe of its 6,000,000-row table,
-     8,192 rows, and the eager path's largest probe), and K1's `timing:`
-     lines add the mean probe steps a lane, the table bytes the probes
+     under "shapes", K1's four (the star's probe of its 6,000,000-row table,
+     8,192 rows, the eager path's largest probe, and the main path's
+     largest in each layout, row-major and column-major), and K1's
+     `timing:` lines add the query's strides, the mean probe steps a lane,
+     the table bytes the probes
      reach against the whole table's, and the share of dead (-1) lanes;
      every record its launches on its path ("launches"),
      on the eager path ("eager_launches"), the serving path
@@ -3089,12 +3092,35 @@ def offset_view(a, device, offset: int = 1):
     return base[offset:]
 
 
+K1_LAYOUTS = ("rows", "cols", "cols_offset")
+
+
+def query_layout(queries, device, layout: str = "rows"):
+    """(Q, K) int32 query rows on `device` in one of K1's layouts
+    (K1_LAYOUTS): "rows", row-major; "cols", column-major, a (K, Q) buffer
+    transposed, as the compiled executor's key block of one probe;
+    "cols_offset", a column-major view one row and one column into a
+    (K + 1, Q + 1) buffer, as one probe's columns of a block that several
+    probes share (storage offset, and a column stride above Q)."""
+    import torch
+
+    q = np.asarray(queries, np.int32).reshape(len(queries), -1)
+    if layout == "rows":
+        return torch.as_tensor(np.ascontiguousarray(q)).to(device)
+    if layout == "cols":
+        return torch.as_tensor(np.ascontiguousarray(q.T)).to(device).t()
+    buf = np.full((q.shape[1] + 1, q.shape[0] + 1), 7, np.int32)
+    buf[1:, 1:] = q.T
+    return torch.as_tensor(buf).to(device)[1:, 1:].t()
+
+
 def edge_cases(device):
     """Per kernel, inputs the main path may not reach: ragged sizes, a
     one-row table, all -1 query lanes, a table of negative (pad) keys,
     total/live = 0, and K1's hand-built corners (hash_probe_corners) at
     widths 1 to 5, with `slots` also as a view one element into its
-    storage, and their queries tiled to K1_LARGE_CALL rows."""
+    storage, their queries tiled to K1_LARGE_CALL rows, and both also in
+    the column-major layouts (query_layout)."""
     import torch
     from repro_torch.kernels import ops
 
@@ -3122,8 +3148,9 @@ def edge_cases(device):
     for k in range(1, 6):
         slots, keys, queries, _want = hash_probe_corners(k)
         large = np.tile(queries, (-(-K1_LARGE_CALL // len(queries)), 1))
-        cases["hash_probe"] += [(t(slots), t(keys), q, ops.PROBE_BUDGET) for q in
-                                (t(queries), t(large))]
+        cases["hash_probe"] += [(t(slots), t(keys), query_layout(q, device, layout),
+                                 ops.PROBE_BUDGET)
+                                for q in (queries, large) for layout in K1_LAYOUTS]
         cases["hash_probe"].append((offset_view(slots, device), t(keys), t(queries),
                                     ops.PROBE_BUDGET))
     counts = rng.integers(0, 5, 777)
@@ -3537,10 +3564,12 @@ def time_kernel(mods, name, args, captured) -> dict:
         whole = sum(t.numel() * t.element_size() for t in args[:3]) + 4 * q.shape[0]
         rec["whole_table_bound_ms"] = max(whole / HBM_BW * 1e3, t_ops)
         rec.update({"steps_per_lane": int(reach[0].sum()) / max(q.shape[0], 1),
+                    "query_strides": list(q.stride()),
                     "reached_table_bytes": reach[1],
                     "table_bytes": slots.numel() * 4 + keys.numel() * 4,
                     "dead_lanes": int((q[:, 0] == -1).sum()) / max(q.shape[0], 1)})
-        extra = (f"; steps a lane {rec['steps_per_lane']:.4f}, table bytes reached "
+        extra = (f"; query strides {rec['query_strides']}, steps a lane "
+                 f"{rec['steps_per_lane']:.4f}, table bytes reached "
                  f"{rec['reached_table_bytes']} of {rec['table_bytes']}, dead lanes "
                  f"{rec['dead_lanes']:.6f}")
     print(f"timing: {name} {rec['shape']} warm ms {fmt(rec['warm'])} cold ms "
@@ -3735,8 +3764,13 @@ def main(argv=None) -> int:
 
     captured = capture_main_path_inputs(workloads)
     captured["intersect"] = k5_args
+    slots, table_keys, main_q, budget = captured["hash_probe"]
     shapes = {"hash_probe": {"star_small": capture_star_probe(workloads),
-                             "eager_q1": eager_seen["hash_probe"]},
+                             "eager_q1": eager_seen["hash_probe"],
+                             # the main path's largest call in either layout
+                             **{f"main_{layout}": (slots, table_keys, query_layout(
+                                 main_q.cpu().numpy(), device, layout), budget)
+                                for layout in ("rows", "cols")}},
               "intersect": intersect_shapes(args.seed, device)}
     errors = parity(mods, captured, {"standing-q1 ingest": q1_seen,
                                      "stage replay": replay_seen,

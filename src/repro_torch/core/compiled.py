@@ -230,6 +230,43 @@ def _lexsort(keys: list[torch.Tensor]) -> torch.Tensor:
     return order.to(_I32)
 
 
+def _gather(src: torch.Tensor, idx: torch.Tensor, out: torch.Tensor | None = None):
+    """src[idx] for a 1-D src and indices in range, written into `out`
+    where one is given. index_select reads int32 indices as they are;
+    indexing (src[idx]) first copies them to int64 on the card, a
+    conversion of the whole index a gather."""
+    return torch.index_select(src, 0, idx, out=out)
+
+
+class _KeyBlock:
+    """The key columns of consecutive probes of one node that read one
+    frontier, in one column-major (cap, width) int32 block `q`: probe j
+    reads columns [at[j], at[j] + 1 + its key count), its group id and then
+    its key values, as a view K1 reads in place. The gathers that make the
+    frontier's columns write each key where K1 reads it: `dest` maps each
+    var the probes read to its first probe's column (a later probe's column
+    of the same var is a copy), and the frontier keeps that column as the
+    var's bound values. No stacked copy of the keys is made."""
+
+    __slots__ = ("q", "cols", "at", "dest")
+
+    def __init__(self, probes, cap: int, device):
+        widths = [1 + len(sa.vars) for sa in probes]
+        self.q = torch.empty_strided((cap, sum(widths)), (1, cap), dtype=_I32, device=device)
+        self.cols = self.q.unbind(1)
+        self.at, self.dest = [], {}
+        r = 0
+        for sa, w in zip(probes, widths):
+            self.at.append(r)
+            for i, v in enumerate(sa.vars):
+                self.dest.setdefault(v, self.cols[r + 1 + i])
+            r += w
+
+    def query(self, j: int, width: int) -> torch.Tensor:
+        """Probe j's (cap, width) view."""
+        return self.q if len(self.at) == 1 else self.q[:, self.at[j]:self.at[j] + width]
+
+
 def _segment_sum(values: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
     """jax.ops.segment_sum with num_segments=n (ids are in [0, n))."""
     out = torch.zeros(n, dtype=values.dtype, device=values.device)
@@ -387,21 +424,23 @@ class StaticTrie:
                 return self.total_mult.expand(gids.shape)
             return torch.full(gids.shape, self.n, dtype=_I32, device=gids.device)
         if self.mult_col is not None:
-            return self.row_weight[d - 1][gids]
-        return self.row_count[d - 1][gids]
+            return _gather(self.row_weight[d - 1], gids)
+        return _gather(self.row_count[d - 1], gids)
 
     # physical depth-d group sizes: addressing for last-level enumeration
     def _phys_rows(self, d: int, gids: torch.Tensor) -> torch.Tensor:
         if self.trivial or d == 0:
             return torch.full(gids.shape, self.n, dtype=_I32, device=gids.device)
-        return self.row_count[d - 1][gids]
+        return _gather(self.row_count[d - 1], gids)
 
-    def probe(self, d: int, gids, key_cols):
+    def probe(self, d: int, q: torch.Tensor) -> torch.Tensor:
+        """The depth-(d + 1) group of each query row, or -1. q: (Q, 1 + K)
+        int32, a row's depth-d group id (-1 on a dead lane) and its K key
+        values at level d, any strides: K1 reads them where they lie."""
         if self.empty:  # nothing to match: kill every probing lane
-            return torch.full(gids.shape, -1, dtype=_I32, device=gids.device)
-        q = torch.stack([gids.to(_I32)] + [c.to(_I32) for c in key_cols], dim=1)
+            return torch.full((q.shape[0],), -1, dtype=_I32, device=q.device)
         p = ops.probe(self.tables[d], q)
-        child = self.g[d + 1][p.clamp(0, self.n - 1)]
+        child = _gather(self.g[d + 1], p.clamp(0, self.n - 1))
         return torch.where(p >= 0, child, -1)
 
     def iter_counts(self, d: int, gids, last: bool):
@@ -413,21 +452,25 @@ class StaticTrie:
         if self.trivial:
             return z, torch.full(gids.shape, self.n, dtype=_I32, device=gids.device)
         if last:
-            base = self.kpos[d][gids.clamp(0, self.n - 1)] if d > 0 else z
+            base = _gather(self.kpos[d], gids.clamp(0, self.n - 1)) if d > 0 else z
             return base, self._phys_rows(d, gids)
-        return self.child_base[d][gids], self.child_counts[d][gids]
+        return _gather(self.child_base[d], gids), _gather(self.child_counts[d], gids)
 
-    def bind_iter(self, d: int, members, last: bool):
+    def bind_iter(self, d: int, members, last: bool, out=None):
         """Column values bound by iterating; members from expand_counted.
-        Returns (cols list in level-var order, new_gids or None)."""
+        Returns (cols list in level-var order, new_gids, or None where the
+        iteration ends the trie: the last level, or a trivial trie).
+        `out`: per level var, an int32 column to gather its values into
+        (a probe's key column, see _KeyBlock) or None."""
         lv = self.levels[d]
+        out = out or (None,) * len(lv)
         if self.trivial:
-            return [self.cols[v][members] for v in lv], None
+            return [_gather(self.cols[v], members, o) for v, o in zip(lv, out)], None
         if last:
-            rows = self.order[members]
-            return [self.cols[v][rows] for v in lv], self.g[d + 1][members]
-        kp = self.kpos[d + 1][members]
-        return [self.sorted_cols[v][kp] for v in lv], members
+            rows = _gather(self.order, members)
+            return [_gather(self.cols[v], rows, o) for v, o in zip(lv, out)], None
+        kp = _gather(self.kpos[d + 1], members)
+        return [_gather(self.sorted_cols[v], kp, o) for v, o in zip(lv, out)], members
 
     def iter_mult(self, members) -> torch.Tensor | None:
         """Per-row multiplicity of the physical rows enumerated by a
@@ -435,8 +478,8 @@ class StaticTrie:
         A zero marks a pad row — the executor kills that lane."""
         if self.mult_col is None:
             return None
-        rows = members if self.trivial else self.order[members]
-        return self.mult_col[rows]
+        rows = members if self.trivial else _gather(self.order, members)
+        return _gather(self.mult_col, rows)
 
 
 def build_trie(
@@ -1019,6 +1062,13 @@ def make_executor(
             return src
         return build_trie(src, lops, budget=budget, mult=mult)
 
+    def first_run(i: int, nprobes: int, cap: int) -> int:
+        """How many of node i's probes read its frontier before its
+        compaction squeezes it mid-node (all of them where it does not)."""
+        if compact_to[i] is not None and compact_to[i] < cap:
+            return min(max(compact_probe[i], 1), nprobes)
+        return nprobes
+
     def run(
         rel_data: dict[str, object],
         rel_mults: dict[str, torch.Tensor] | None = None,
@@ -1044,7 +1094,7 @@ def make_executor(
             st.cap = no_lane = filter_consts.shape[0]
             st.lane = torch.arange(st.cap, dtype=_I32, device=device)
             st.valid = st.lane < (st.cap if live is None else live)
-            st.bound = {v: filter_consts[:, j] for v, j in filter_idx.items()}
+            st.bound = {v: filter_consts[:, j].to(_I32) for v, j in filter_idx.items()}
         else:
             st.cap = 1
             st.valid = torch.ones(1, dtype=torch.bool, device=device)
@@ -1053,6 +1103,7 @@ def make_executor(
         # needs stay int32 where no total can reach 2**31, so that they
         # stack in one launch; one that may reach it is an int64
         zero = torch.zeros((), dtype=_I32, device=device)
+        dead = torch.full((), -1, dtype=_I32, device=device)  # a dead lane's group id
         need_expand = [zero] * nsched
         need_compact = [zero] * nsched
         # lanes each node allocates: its expansions' capacities, its
@@ -1098,20 +1149,23 @@ def make_executor(
                         hit = cvals[None, :] == filter_consts[:, filter_idx[v], None]
                         st.fvalid = hit if st.fvalid is None else st.fvalid & hit
 
-        def squeeze(st, c_compact, i):
+        def squeeze(st, c_compact, i, rest=()):
             """Pack the valid lanes into a fresh c_compact-wide frontier
             (on `valid` alone: the mask-mode filter mask and the seeded
-            lane ids ride along)."""
+            lane ids ride along); the node's `rest` probes read it, their
+            keys gathered into their block."""
             src, n_live = ops.compact_indices(st.valid, c_compact)
             note(i, n_live, c_compact, compaction=True)
             srcc = src.clamp(0, st.cap - 1)
-            st.bound = {v: a[srcc] for v, a in st.bound.items()}
-            st.gid = {a: arr[srcc] for a, arr in st.gid.items()}
-            st.mult = st.mult[srcc]
+            st.keys = _KeyBlock(rest, c_compact, device) if rest else None
+            dest = st.keys.dest if rest else {}
+            st.bound = {v: _gather(a, srcc, dest.get(v)) for v, a in st.bound.items()}
+            st.gid = {a: _gather(arr, srcc) for a, arr in st.gid.items()}
+            st.mult = _gather(st.mult, srcc)
             if st.fvalid is not None:
-                st.fvalid = st.fvalid[:, srcc]
+                st.fvalid = st.fvalid.index_select(1, srcc)
             if st.lane is not None:
-                st.lane = torch.where(src >= 0, st.lane[srcc], no_lane)
+                st.lane = torch.where(src >= 0, _gather(st.lane, srcc), no_lane)
             st.valid = torch.arange(c_compact, dtype=_I32, device=device) < n_live
             st.cap = c_compact
 
@@ -1122,6 +1176,7 @@ def make_executor(
             the root relation's rows [lo, hi)."""
             t = tries[cover.alias]
             d = st.depth[cover.alias]
+            st.keys = None
             if rows is not None:
                 lo, hi = rows
                 st.cap = hi - lo
@@ -1138,7 +1193,9 @@ def make_executor(
                 else:
                     st.mult = torch.ones(st.cap, dtype=_I32, device=device)
                 return
-            g = st.gid.get(cover.alias, torch.zeros(st.cap, dtype=_I32, device=device))
+            g = st.gid.get(cover.alias)
+            if g is None:
+                g = torch.zeros(st.cap, dtype=_I32, device=device)
             last = d == t.L - 1
             # a filtered var can never take the factorized-count shortcut:
             # its comparison against the constant needs the bound values
@@ -1162,19 +1219,25 @@ def make_executor(
             note(i, total, c_next, other=other)
             frc = fr.clamp(0, st.cap - 1)
             memc = member.clamp(0, max(t.n - 1, 0))
-            st.bound = {v: a[frc] for v, a in st.bound.items()}
-            st.gid = {a: arr[frc] for a, arr in st.gid.items()}
-            st.mult = st.mult[frc]
+            # the probes' keys are gathered into their block; the cover's
+            # own group ids are replaced by its iteration's below
+            m = first_run(i, len(probes), c_next)
+            st.keys = _KeyBlock(probes[:m], c_next, device) if m else None
+            dest = st.keys.dest if m else {}
+            st.bound = {v: _gather(a, frc, dest.get(v)) for v, a in st.bound.items()}
+            st.gid = {a: _gather(arr, frc) for a, arr in st.gid.items() if a != cover.alias}
+            st.mult = _gather(st.mult, frc)
             if st.fvalid is not None:
-                st.fvalid = st.fvalid[:, frc]
+                st.fvalid = st.fvalid.index_select(1, frc)
             if st.lane is not None:
-                st.lane = torch.where(fr >= 0, st.lane[frc], no_lane)
+                st.lane = torch.where(fr >= 0, _gather(st.lane, frc), no_lane)
             st.valid = vnew
             st.cap = c_next
-            cols, new_g = t.bind_iter(d, memc, last)
+            cols, new_g = t.bind_iter(
+                d, memc, last, [None if v in st.bound else dest.get(v) for v in cover.vars])
             bind(st, cover.vars, cols)
             st.depth[cover.alias] = d + 1
-            if new_g is None or st.depth[cover.alias] == t.L:
+            if new_g is None:
                 # last-level iteration enumerates physical rows, so bag
                 # multiplicity is already accounted for — except on a
                 # weighted (stage-output) trie, whose per-row mult folds
@@ -1188,15 +1251,35 @@ def make_executor(
                 st.gid[cover.alias] = new_g
 
         def probe(st, i, probes):
-            """The node's probes, compacting at its compact point."""
+            """The node's probes, compacting at its compact point. Each
+            reads its group ids and keys from the frontier's key block,
+            where the gathers that made the frontier wrote them; a key
+            they did not write (a tile's view of its relation, a seeded
+            lane's constant, a var an earlier probe of the block read) is
+            copied in, and TRACE counts the columns both ways."""
             c_compact, cp_idx = compact_to[i], compact_probe[i]
             compacted = False
+            if probes and st.keys is None:  # no expansion gathered their keys
+                st.keys = _KeyBlock(probes[:first_run(i, len(probes), st.cap)], st.cap, device)
+            lo = 0  # the first probe st.keys holds
             for j, sa in enumerate(probes):
+                kb = st.keys
                 tp = tries[sa.alias]
                 dp = st.depth[sa.alias]
-                gp = st.gid.get(sa.alias, torch.zeros(st.cap, dtype=_I32, device=device))
-                keys = [st.bound[v] for v in sa.vars]
-                child = tp.probe(dp, torch.where(st.valid, gp, -1), keys)
+                at = kb.at[j - lo]
+                gp = st.gid.get(sa.alias, zero)  # a depth-0 probe's group: the root
+                torch.where(st.valid, gp, dead, out=kb.cols[at])
+                copied = 0
+                for n, v in enumerate(sa.vars):
+                    col = kb.cols[at + 1 + n]
+                    if st.bound[v] is not col:
+                        col.copy_(st.bound[v])
+                        copied += 1
+                TRACE.key_cols_in_place += (len(sa.vars) + 1 - copied) * st.cap
+                TRACE.key_cols_copied += copied * st.cap
+                if j - lo == len(kb.at) - 1:
+                    st.keys = None  # the block lives on only in the bound columns
+                child = tp.probe(dp, kb.query(j - lo, len(sa.vars) + 1))
                 st.valid = st.valid & (child >= 0)
                 childc = child.clamp(0, max(tp.n - 1, 0))
                 st.depth[sa.alias] = dp + 1
@@ -1209,7 +1292,8 @@ def make_executor(
                         and c_compact < st.cap):
                     # squeeze dead lanes out mid-node: the remaining probes
                     # (and all later nodes) run at c_compact
-                    squeeze(st, c_compact, i)
+                    squeeze(st, c_compact, i, probes[j + 1:])
+                    lo = j + 1
                     compacted = True
             if c_compact is not None and not compacted and c_compact < st.cap:
                 # probe-less node (or unreached compact point): after-node
@@ -1240,7 +1324,9 @@ def make_executor(
             for c in covers:
                 t = tries[c.alias]
                 d = st.depth[c.alias]
-                g = st.gid.get(c.alias, torch.zeros(st.cap, dtype=_I32, device=device))
+                g = st.gid.get(c.alias)
+                if g is None:
+                    g = torch.zeros(st.cap, dtype=_I32, device=device)
                 counted.append(t.iter_counts(d, g, d == t.L - 1))
             if len(covers) == 2:
                 second = counted[1][1] < counted[0][1]
@@ -1336,14 +1422,16 @@ def make_executor(
 class _Front:
     """One frontier of an executor call: bound columns, trie group ids,
     multiplicities, lane liveness, the mask-mode filter mask, the seeded
-    lane ids, its width and each alias's consumed trie depth."""
+    lane ids, its width, each alias's consumed trie depth, and the key
+    block its next probes read."""
 
-    __slots__ = ("bound", "gid", "mult", "valid", "fvalid", "lane", "cap", "depth")
+    __slots__ = ("bound", "gid", "mult", "valid", "fvalid", "lane", "cap", "depth", "keys")
 
     def __init__(self):
         self.bound, self.gid, self.depth = {}, {}, {}
         self.mult = self.valid = self.fvalid = self.lane = None
         self.cap = 0
+        self.keys = None  # the _KeyBlock of the next probes, where gathered
 
     def copy(self) -> "_Front":
         out = _Front()

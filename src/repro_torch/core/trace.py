@@ -38,7 +38,12 @@ those made at lane-choice nodes, where each lane iterates its smallest
 cover, and `lanes_other_cover` those of them made by a cover other than
 the node's first listed. `exec.tile` is one tile of a call that runs its
 first node's rows in tiles (none where a call is one tile);
-`seeded_dispatches` counts the calls of its seeded-lanes runner
+`key_cols_in_place` and `key_cols_copied` count the key columns the
+compiled executor's probes handed K1, group ids included, each weighted
+by its rows: those K1 read where the gathers that made the frontier wrote
+them, and those copied into the probe's key block first (a tile's view of
+its relation, a seeded lane's constant, a var two probes of one block
+read). `seeded_dispatches` counts the calls of its seeded-lanes runner
 (compiled.SeededExecutor), so that over `serve.dispatch`'s count it is the
 share of the serving engine's dispatches that took seeded lanes.
 
@@ -177,6 +182,8 @@ class Tracer:
         self.lanes_expanded = 0  # lanes the expansions made
         self.lanes_multi_cover = 0  # of them at lane-choice nodes
         self.lanes_other_cover = 0  # of those by a cover other than the first
+        self.key_cols_in_place = 0  # probe key columns K1 read in place, x rows
+        self.key_cols_copied = 0  # and those copied into a key block first
         self.seeded_dispatches = 0  # calls of a seeded-lanes runner
         self.spans: dict[str, Span] = {}
         for name, keys, owns in _SPECS:

@@ -31,10 +31,10 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # launcher symbol and argument types of each library's C interface
 _SIGNATURES = {
-    "hash_probe": ("hash_probe_launch", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
+    "hash_probe": ("hash_probe_launch", (_P, _P, _P, _L, _L, _P, _I, _I, _I, _I, _I, _P)),
     "csr_expand": ("csr_expand_launch", (_P, _P, _P, _P, _P, _I, _I, _P)),
     "compact": ("compact_launch", (_P, _P, _P, _I, _I, _P)),
     "radix_rank": ("radix_rank_launch", (_P, _P, _P, _P, _I, _P)),
@@ -167,14 +167,15 @@ def in_plain() -> bool:
     return _plain_depth > 0
 
 
-def common_device(name: str, **tensors: torch.Tensor) -> torch.device:
-    """Validate a kernel's tensor arguments: int32, contiguous, all on one
-    device. Returns that device; raises ValueError otherwise."""
+def common_device(name: str, strided: tuple = (), **tensors: torch.Tensor) -> torch.device:
+    """Validate a kernel's tensor arguments: int32, contiguous (but those
+    named in `strided`, which the kernel reads through their strides), all
+    on one device. Returns that device; raises ValueError otherwise."""
     devices = set()
     for arg, t in tensors.items():
         if not isinstance(t, torch.Tensor) or t.dtype != torch.int32:
             raise ValueError(f"{name}: {arg} must be an int32 tensor")
-        if not t.is_contiguous():
+        if arg not in strided and not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
         devices.add(t.device)
     if len(devices) != 1:

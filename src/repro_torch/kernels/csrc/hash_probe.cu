@@ -16,7 +16,10 @@
 // sending the table reads past L1 (ld.global.cg) is slower. On a
 // large call the card is full of threads and the cost is the gathers'
 // number; on a small one it is the length of each lane's chain of
-// dependent loads.
+// dependent loads. Reading the query rows column-major (below) left the
+// largest call of GAP urand's triangle (276,865,024 rows, K = 3) as fast
+// as row-major, 23.6 ms on an H100 and about half of that query's device
+// time: the query stream is not what bounds it.
 //
 // What the design does about it:
 //   - A large call (at least kLargeCall = 4 rows for every thread the
@@ -35,15 +38,23 @@
 //     large call.
 //   - K (1 to 4) is a template parameter: the hash and the compare unroll,
 //     and a key row is K read-only 4-byte loads, cached in L1.
+//   - Key i of query row j is read at queries[j * s0 + i * s1] (64-bit
+//     offsets): any (Q, K) view, so the caller hands K1 its key columns
+//     where they lie and nothing is stacked or copied for it. The compiled
+//     executor gathers each probe's columns into one column-major block
+//     (s0 = 1, s1 = the block's row count), so a warp's load of one key is
+//     32 consecutive words, one coalesced 128-byte line; a row-major block
+//     (s0 = K, s1 = 1) spreads the same load over K lines.
 //   - Query rows are read and results written as streaming (evict-first)
 //     accesses, so that the stream does not push table lines out of L1
 //     and L2.
 //   - Blocks of 128 threads (kNT).
 // tools/k1_variants/ holds what was measured against it with tools/k1_ab.py
-// and found slower (PERF.md, PR 24): query tiles staged in shared memory by
-// TMA bulk copies over a persistent grid, the granule probe on large calls,
-// L2 evict-last on the table, the table past L1, 256-thread blocks, and one
-// or four rows a thread on large calls.
+// and found slower (PERF.md): the granule probe on large calls, L2
+// evict-last on the table, the table past L1, 256-thread blocks, and one or
+// four rows a thread on large calls. Query tiles staged in shared memory by
+// TMA bulk copies over a persistent grid were 1.7x slower on row-major
+// queries, and have no place in a column-major block.
 // Wider keys (K > 4) take probe_wide: one thread a row, the key width a
 // runtime loop bound.
 #include "common.cuh"
@@ -69,8 +80,8 @@ constexpr uint32_t kMixSeed = 374761393u;
 template <int K, int V>
 __global__ void __launch_bounds__(kNT)
     probe_rows(const int32_t* __restrict__ slots, const int32_t* __restrict__ keys,
-               const int32_t* __restrict__ queries, int32_t* __restrict__ out, int nq,
-               int nkeys, int cap, int budget) {
+               const int32_t* __restrict__ queries, long long s0, long long s1,
+               int32_t* __restrict__ out, int nq, int nkeys, int cap, int budget) {
   const long long j0 = static_cast<long long>(blockIdx.x) * kNT * V + threadIdx.x;
   int32_t q[V][K], res[V];
   int pos[V], end[V];
@@ -83,7 +94,7 @@ __global__ void __launch_bounds__(kNT)
     uint32_t h = kMixSeed;
 #pragma unroll
     for (int i = 0; i < K; ++i) {
-      q[v][i] = j < nq ? __ldcs(queries + j * K + i) : 0;
+      q[v][i] = j < nq ? __ldcs(queries + j * s0 + i * s1) : 0;
       h = mix_step(h, q[v][i]);
     }
     if (j < nq && budget > 0) {
@@ -136,15 +147,15 @@ __global__ void __launch_bounds__(kNT)
 template <int K>
 __global__ void __launch_bounds__(kNT)
     probe_sector(const int32_t* __restrict__ slots, const int32_t* __restrict__ keys,
-                 const int32_t* __restrict__ queries, int32_t* __restrict__ out, int nq,
-                 int nkeys, int cap, int budget) {
+                 const int32_t* __restrict__ queries, long long s0, long long s1,
+                 int32_t* __restrict__ out, int nq, int nkeys, int cap, int budget) {
   const long long j = static_cast<long long>(blockIdx.x) * kNT + threadIdx.x;
   if (j >= nq) return;
   int32_t q[K];
   uint32_t h = kMixSeed;
 #pragma unroll
   for (int i = 0; i < K; ++i) {
-    q[i] = __ldcs(queries + j * K + i);
+    q[i] = __ldcs(queries + j * s0 + i * s1);
     h = mix_step(h, q[i]);
   }
   const int n = cap + budget;
@@ -205,13 +216,13 @@ __global__ void __launch_bounds__(kNT)
 // K > 4: one thread a row, the key width a runtime bound.
 __global__ void __launch_bounds__(kNT)
     probe_wide(const int32_t* __restrict__ slots, const int32_t* __restrict__ keys,
-               const int32_t* __restrict__ queries, int32_t* __restrict__ out, int nq, int k,
-               int nkeys, int cap, int budget) {
+               const int32_t* __restrict__ queries, long long s0, long long s1,
+               int32_t* __restrict__ out, int nq, int k, int nkeys, int cap, int budget) {
   const long long j = static_cast<long long>(blockIdx.x) * kNT + threadIdx.x;
   if (j >= nq) return;
-  const int32_t* q = queries + j * k;
+  const int32_t* q = queries + j * s0;
   uint32_t h = kMixSeed;
-  for (int i = 0; i < k; ++i) h = mix_step(h, q[i]);
+  for (int i = 0; i < k; ++i) h = mix_step(h, q[i * s1]);
   h &= static_cast<uint32_t>(cap - 1);
   int32_t res = -1;
   for (int p = 0; p < budget; ++p) {
@@ -219,7 +230,7 @@ __global__ void __launch_bounds__(kNT)
     if (cand < 0) break;  // empty slot: the key is absent
     const int32_t* row = keys + static_cast<long long>(min(cand, nkeys - 1)) * k;
     bool eq = true;
-    for (int i = 0; i < k; ++i) eq &= __ldg(row + i) == q[i];
+    for (int i = 0; i < k; ++i) eq &= __ldg(row + i) == q[i * s1];
     if (eq) {
       res = cand;
       break;
@@ -236,27 +247,28 @@ unsigned int blocks_for(int nq, int rows_per_thread) {
 // K's kernel: probe_rows when the call has kLargeCall rows for every thread
 // the card holds, else probe_sector.
 template <int K>
-void launch_k(const int32_t* slots, const int32_t* keys, const int32_t* queries, int32_t* out,
-              int nq, int nkeys, int cap, int budget, cudaStream_t stream) {
+void launch_k(const int32_t* slots, const int32_t* keys, const int32_t* queries, long long s0,
+              long long s1, int32_t* out, int nq, int nkeys, int cap, int budget,
+              cudaStream_t stream) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxThreadsPerMultiProcessor, dev);
   if (static_cast<long long>(nq) >= static_cast<long long>(kLargeCall) * sms * per_sm) {
     probe_rows<K, kRows><<<blocks_for(nq, kRows), kNT, 0, stream>>>(
-        slots, keys, queries, out, nq, nkeys, cap, budget);
+        slots, keys, queries, s0, s1, out, nq, nkeys, cap, budget);
   } else {
-    probe_sector<K><<<blocks_for(nq, 1), kNT, 0, stream>>>(slots, keys, queries, out, nq,
-                                                           nkeys, cap, budget);
+    probe_sector<K><<<blocks_for(nq, 1), kNT, 0, stream>>>(slots, keys, queries, s0, s1, out,
+                                                           nq, nkeys, cap, budget);
   }
 }
 
 }  // namespace
 
 REPRO_EXPORT int hash_probe_launch(const void* slots, const void* table_keys,
-                                   const void* query_keys, void* out, int nq,
-                                   int k, int nkeys, int cap, int budget,
-                                   void* stream) {
+                                   const void* query_keys, long long s0, long long s1,
+                                   void* out, int nq, int k, int nkeys, int cap,
+                                   int budget, void* stream) {
   if (nq > 0) {
     const auto* s = static_cast<const int32_t*>(slots);
     const auto* t = static_cast<const int32_t*>(table_keys);
@@ -264,12 +276,13 @@ REPRO_EXPORT int hash_probe_launch(const void* slots, const void* table_keys,
     auto* o = static_cast<int32_t*>(out);
     const auto st = static_cast<cudaStream_t>(stream);
     switch (k) {
-      case 1: launch_k<1>(s, t, q, o, nq, nkeys, cap, budget, st); break;
-      case 2: launch_k<2>(s, t, q, o, nq, nkeys, cap, budget, st); break;
-      case 3: launch_k<3>(s, t, q, o, nq, nkeys, cap, budget, st); break;
-      case 4: launch_k<4>(s, t, q, o, nq, nkeys, cap, budget, st); break;
+      case 1: launch_k<1>(s, t, q, s0, s1, o, nq, nkeys, cap, budget, st); break;
+      case 2: launch_k<2>(s, t, q, s0, s1, o, nq, nkeys, cap, budget, st); break;
+      case 3: launch_k<3>(s, t, q, s0, s1, o, nq, nkeys, cap, budget, st); break;
+      case 4: launch_k<4>(s, t, q, s0, s1, o, nq, nkeys, cap, budget, st); break;
       default:
-        probe_wide<<<blocks_for(nq, 1), kNT, 0, st>>>(s, t, q, o, nq, k, nkeys, cap, budget);
+        probe_wide<<<blocks_for(nq, 1), kNT, 0, st>>>(s, t, q, s0, s1, o, nq, k, nkeys, cap,
+                                                       budget);
     }
   }
   return static_cast<int>(cudaGetLastError());

@@ -74,11 +74,15 @@ def hash_probe(
     slots: torch.Tensor, table_keys: torch.Tensor, query_keys: torch.Tensor, budget: int
 ) -> torch.Tensor:
     """slots: (cap + budget,) int32, cap a power of two; table_keys: (N, K)
-    int32 with N >= 1; query_keys: (Q, K) int32. Returns (Q,) int32: the
-    row of table_keys equal to each query row, or -1."""
+    int32 with N >= 1; query_keys: (Q, K) int32, any strides (the kernel
+    reads key i of row j at j * stride(0) + i * stride(1), so a view of
+    the caller's key columns, such as a column-major (K, Q) block
+    transposed, costs no copy). Returns (Q,) int32: the row of table_keys
+    equal to each query row, or -1."""
     global launches
     device = _build.common_device(
-        "hash_probe", slots=slots, table_keys=table_keys, query_keys=query_keys
+        "hash_probe", ("query_keys",), slots=slots, table_keys=table_keys,
+        query_keys=query_keys,
     )
     cap = slots.shape[0] - budget if slots.dim() == 1 else 0
     if cap <= 0 or cap & (cap - 1):
@@ -93,8 +97,9 @@ def hash_probe(
         )
     out = torch.empty(query_keys.shape[0], dtype=torch.int32, device=device)
     _build.launch(
-        "hash_probe", device, slots, table_keys, query_keys, out,
-        query_keys.shape[0], query_keys.shape[1], table_keys.shape[0], cap, budget,
+        "hash_probe", device, slots, table_keys, query_keys, query_keys.stride(0),
+        query_keys.stride(1), out, query_keys.shape[0], query_keys.shape[1],
+        table_keys.shape[0], cap, budget,
     )
     launches += 1
     return out

@@ -62,11 +62,12 @@ def build_table(keys: torch.Tensor, budget: int = PROBE_BUDGET) -> Table:
 
 
 def probe(table: Table, queries: torch.Tensor) -> torch.Tensor:
-    """queries: (Q, K) int32 -> (Q,) int32 row index in table.keys or -1."""
+    """queries: (Q, K) int32, any strides (K1 reads them where they lie) ->
+    (Q,) int32 row index in table.keys or -1."""
     if table.keys.shape[0] == 0 or queries.shape[0] == 0:
         return torch.full((queries.shape[0],), -1, dtype=torch.int32, device=queries.device)
     budget = table.slots.shape[0] - _next_pow2(table.keys.shape[0])
-    return hash_probe(table.slots, table.keys, queries.contiguous(), budget)
+    return hash_probe(table.slots, table.keys, queries, budget)
 
 
 def intersect_sorted(a: torch.Tensor, b: torch.Tensor):
@@ -83,8 +84,7 @@ def intersect_sorted(a: torch.Tensor, b: torch.Tensor):
 
 def _expand(starts, base, total, capacity):
     fr, member = csr_expand(starts, base, total.reshape(1), capacity)
-    valid = torch.arange(capacity, dtype=torch.int32, device=starts.device) < total
-    return fr, member, valid, total
+    return fr, member, fr >= 0, total  # K2 writes -1 past the total
 
 
 def expand_counted(base: torch.Tensor, counts: torch.Tensor, capacity: int):

@@ -81,8 +81,10 @@ class HashTable:
             self.table = ops.build_table(self.keys, budget=budget)
 
     def probe(self, query_cols: list[torch.Tensor]) -> torch.Tensor:
-        q = torch.stack([c.to(_I32) for c in query_cols], dim=1)
-        return ops.probe(self.table, q)
+        """One (K, Q) block of the query columns, which K1 reads
+        column-major through its transpose."""
+        q = torch.stack([c.to(_I32) for c in query_cols], dim=0)
+        return ops.probe(self.table, q.t())
 
 
 def group_by(key_cols: list[torch.Tensor]):

@@ -58,21 +58,41 @@ def test_hash_probe_kernel(cuda, n, k, q, rng):
     assert_kernel_matches_plain(hash_probe, "hash_probe", table.slots, table.keys, dead, 32)
 
 
-@pytest.mark.parametrize("call", ["small", "large"])
-@pytest.mark.parametrize("offset", [0, 1])
-@pytest.mark.parametrize("k", [1, 2, 3, 4, 5])
-def test_hash_probe_kernel_corners(cuda, k, offset, call):
+def k1_layout_cases(*calls):
+    """(k, offset, [call,] layout) over K1's query layouts
+    (chip_smoke.K1_LAYOUTS); the row-major cases keep the ids they had
+    before the layout was a parameter."""
+    return [pytest.param(k, offset, *call, layout,
+                         id="-".join(map(str, (k, offset, *call)))
+                         + ("" if layout == "rows" else f"-{layout}"))
+            for layout in chip_smoke.K1_LAYOUTS for call in ([(c,) for c in calls] or [()])
+            for offset in (0, 1) for k in range(1, 6)]
+
+
+@pytest.mark.parametrize("k,offset,call,layout", k1_layout_cases("small", "large"))
+def test_hash_probe_kernel_corners(cuda, k, offset, call, layout):
     """test_torch_kernels.py::test_hash_probe_contract_corners' inputs on
     the card: the kernel against its plain version and the contract, as
     they are (a small call, probe_sector) and tiled to a large call
-    (chip_smoke.K1_LARGE_CALL rows, probe_rows)."""
+    (chip_smoke.K1_LARGE_CALL rows, probe_rows), the query rows in each of
+    K1's layouts (chip_smoke.query_layout). One launch a call, and the
+    wrapper allocates nothing but its (Q,) output: a strided query is read
+    where it lies, never copied."""
     slots, keys, qs, want = chip_smoke.hash_probe_corners(k)
     if call == "large":
         reps = -(-chip_smoke.K1_LARGE_CALL // len(qs))
         qs, want = np.tile(qs, (reps, 1)), np.tile(want, reps)
-    args = (chip_smoke.offset_view(slots, cuda, offset), on(cuda, keys), on(cuda, qs), 32)
+    args = (chip_smoke.offset_view(slots, cuda, offset), on(cuda, keys),
+            chip_smoke.query_layout(qs, cuda, layout), 32)
     assert_kernel_matches_plain(hash_probe, "hash_probe", *args)
-    assert np.array_equal(hash_probe.hash_probe(*args).cpu().numpy(), want)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = hash_probe.hash_probe(*args)
+    torch.cuda.synchronize()
+    out_bytes = -(-4 * len(qs) // 512) * 512  # the allocator's 512-byte blocks
+    assert torch.cuda.max_memory_allocated() - before == out_bytes
+    assert np.array_equal(got.cpu().numpy(), want)
 
 
 # fan-outs a tiled merge gets wrong (the kernel merges 2,304 items a block)

@@ -18,7 +18,7 @@ from repro.kernels.hash_probe import QBLK, hash_probe_pallas
 from repro.kernels.hash_probe import mix32 as jmix32
 from repro.kernels.radix_sort import radix_rank_pallas
 from repro_torch.kernels import compact, csr_expand, hash_probe, intersect, ops, radix_sort, ref
-from test_torch_cuda import INTERSECT_HARD, intersect_hard_case
+from test_torch_cuda import INTERSECT_HARD, intersect_hard_case, k1_layout_cases
 
 import chip_smoke
 
@@ -90,15 +90,16 @@ def test_hash_probe_vs_pallas(n, k, q, rng):
     np.testing.assert_array_equal(ref.hash_probe_ref(t32(keys), t32(qs)).numpy(), want)
 
 
-@pytest.mark.parametrize("offset", [0, 1])
-@pytest.mark.parametrize("k", [1, 2, 3, 4, 5])
-def test_hash_probe_contract_corners(k, offset):
+@pytest.mark.parametrize("k,offset,layout", k1_layout_cases())
+def test_hash_probe_contract_corners(k, offset, layout):
     """The probe's contract at its corners (chip_smoke.hash_probe_corners:
     a match after an empty slot, a match only at h + budget, duplicate
     rows in one chain, home slots in the last 8 slots of cap, a clamped
     candidate, negative and INT32_MIN keys, dead lanes), key widths 1-5,
-    `slots` also a view one element into its storage: the plain version
-    against the reference's Pallas kernel and the contract's answers."""
+    `slots` also a view one element into its storage, the query rows
+    row-major, column-major and as a column-major view into a larger
+    buffer (chip_smoke.query_layout): the plain version against the
+    reference's Pallas kernel and the contract's answers."""
     slots, keys, qs, want = chip_smoke.hash_probe_corners(k)
     padded = np.zeros((pad_to(len(qs), QBLK), k), np.int32)
     padded[: len(qs)] = qs
@@ -106,7 +107,9 @@ def test_hash_probe_contract_corners(k, offset):
                                           jnp.asarray(padded), interpret=True))[: len(qs)]
     tslots = chip_smoke.offset_view(slots, "cpu", offset)
     assert tslots.storage_offset() == offset
-    got = hash_probe.hash_probe(tslots, t32(keys), t32(qs), hash_probe.PROBE_BUDGET)
+    tq = chip_smoke.query_layout(qs, "cpu", layout)
+    assert tq.shape == (len(qs), k) and tq.is_contiguous() == (layout == "rows" or k == 1)
+    got = hash_probe.hash_probe(tslots, t32(keys), tq, hash_probe.PROBE_BUDGET)
     np.testing.assert_array_equal(pallas, want)
     np.testing.assert_array_equal(got.numpy(), want)
 

@@ -13,8 +13,8 @@
 #   table_evict_last.cu  the table read under an L2 evict-last policy
 #   no_stream.cu         query rows read and results written with the
 #                        default cache policy, not as streaming accesses
-# The larger variant is a whole file beside this script (tma_tiles.cu). Run from the repository root; fails if an edit no longer
-# changes the source.
+# Run from the repository root; fails if an edit no longer changes the
+# source.
 set -euo pipefail
 src=src/repro_torch/kernels/csrc/hash_probe.cu
 here=$(dirname "$0")
