@@ -4,19 +4,21 @@
 Run from the repository root:  python3 chip_smoke.py [--seed 0]
 
 Phases (any failure raises, and the script exits non-zero):
-  1. Build: compile the five CUDA kernels (K1-K5) from src/repro_torch/
-     kernels/csrc, one nvcc each, in parallel; print ptxas's register,
-     spill and shared-memory lines for each kernel function (K5 has two:
-     the directory pre-pass and the search).
+  1. Build: compile the six CUDA libraries (K1-K5 and the trie build's
+     scans, seg_scan) from src/repro_torch/kernels/csrc, one nvcc each, in
+     parallel; print ptxas's register, spill and shared-memory lines for
+     each kernel function (K5 has two: the directory pre-pass and the
+     search; seg_scan a count, a scan of the tiles and a write for each of
+     its entry points, digit_counts and max_scan).
   2. Main path: repro_torch.core.compiled_free_join on the card, with the
      kernels' launch counters set to 0 just before and read just after:
      LSQB q1 (the triangle over `knows` at SF 10: 1,800,200 rows, 300,100
      persons) with agg="count" and agg=None, and the low-selectivity star
      (n = 6,000,000, dom = 300,000, sel = 0.02) with agg="count". Each runs
      cold, then warm; the warm call must build no trie and retry nothing.
-     Results are held against independent numpy oracles, and K1-K4 must
-     have launched.
-  3. Streaming path (counters set to 0 before, read after; K1-K4 must
+     Results are held against independent numpy oracles, and K1-K4 and
+     the trie build's scans must have launched.
+  3. Streaming path (counters set to 0 before, read after; K1-K4 and the scans must
      launch): a standing LSQB q1 at SF 10 through StandingQueryEngine,
      8 ingests of 16,384 new knows edges (another seed), then a delete of
      16,384 random rows; the count equals the numpy oracle on the live
@@ -33,7 +35,7 @@ Phases (any failure raises, and the script exits non-zero):
      compiled_free_join over fresh copies and the T-U stage was replayed;
      the final count equals the numpy oracle; sustained updates and rows
      per second.
-  3a. Serving path (counters set to 0 before, read after; K1-K4 must
+  3a. Serving path (counters set to 0 before, read after; K1-K4 and the scans must
      launch): repro_torch.serve.JoinServeEngine (slots = 16) against serial
      compiled_free_join, on the main path's `knows` at SF 10. Two
      templates, friends of friends (knows(a,b), knows(b,c), an LDBC SNB
@@ -78,7 +80,7 @@ Phases (any failure raises, and the script exits non-zero):
      The `chaos:` line holds each case's rungs and counters. After it the
      main path's queries are planned again (the serial drain's 32
      spellings fill the runner cache).
-  4. Eager path (counters set to 0 before, read after; K1-K4 must launch):
+  4. Eager path (counters set to 0 before, read after; K1-K4 and the scans must launch):
      the eager engine on the card. LSQB q1 at SF 10 (the main path's
      `knows`) through free_join in modes colt, slt and simple,
      binary_join and generic_join with agg="count", and free_join with
@@ -93,7 +95,7 @@ Phases (any failure raises, and the script exits non-zero):
      launches, the compiled path's warm ms beside them (timed outside the
      count); for one eager q1 call the device idle share (torch.profiler)
      and its host synchronizations. The `eager path:` line holds them.
-  4a. Analysis path (counters set to 0 before, read after; K1-K4 must
+  4a. Analysis path (counters set to 0 before, read after; K1-K4 and the scans must
      launch): repro_torch.analysis on the card. compiled_free_join with
      ExecOptions(verify=True) on LSQB q1 at SF 10 and on the star, over
      new relation objects, cold then warm, each count equal to its numpy
@@ -257,11 +259,15 @@ Phases (any failure raises, and the script exits non-zero):
      widths 1 to 5, hash_probe_corners, with `slots` also a view one
      element into its storage, and tiled to a call large enough for K1's
      large-call kernel, each also with its query rows column-major and
-     as a column-major view into a larger buffer, query_layout).
+     as a column-major view into a larger buffer, query_layout; for the
+     scans N = 1, part of a warp's step, a tile and a row, one digit
+     throughout, runs across tiles, negatives, INT_MIN, monotone and
+     constant columns).
      K1 also on its four other timed shapes; K5 on its two: the reference's kern.intersect.100k
      (100,000 sorted queries into the distinct keys of 100,000 draws from
      [0, 2^30)) and large N (4,194,304 queries, half members, into
-     2,097,152 distinct keys from [0, 2^24)); every K5 input is held
+     2,097,152 distinct keys from [0, 2^24)); each scan on SSB SF 10's
+     lineorder size (60,000,000 rows, scan_shapes); every K5 input is held
      against numpy's searchsorted too. Equality is exact: every output is
      an integer (tolerance 0).
   7. Where a cold call's time goes: plan choice, uploads + trie builds,
@@ -282,7 +288,7 @@ Phases (any failure raises, and the script exits non-zero):
      --timing-child IN OUT, on the parent's captured inputs): sessions of
      the main process lose events as it ages. A `profiler:` line gives
      each process's sessions, leads lost and reruns. K5's record holds its two other shapes
-     under "shapes", K1's four (the star's probe of its 6,000,000-row table,
+     under "shapes", each scan's its SSB-size one, K1's four (the star's probe of its 6,000,000-row table,
      8,192 rows, the eager path's largest probe, and the main path's
      largest in each layout, row-major and column-major), and K1's
      `timing:` lines add the query's strides, the mean probe steps a lane,
@@ -334,10 +340,16 @@ KERNELS = {
                    "src/repro/kernels/radix_sort.py:60"),
     "intersect": ("intersect", "src/repro_torch/kernels/csrc/intersect.cu",
                   "src/repro/kernels/intersect.py:26"),
+    # the trie build's scans: two entry points of one library, each counted
+    # on its own; they replace no Pallas kernel (the reference leaves them to XLA)
+    "digit_counts": ("seg_scan", "src/repro_torch/kernels/csrc/seg_scan.cu", "none"),
+    "max_scan": ("seg_scan", "src/repro_torch/kernels/csrc/seg_scan.cu", "none"),
 }
 # the kernels compiled_free_join and the streaming path launch; K5's path
 # is the kernel-op entry point ops.intersect_sorted
 JOIN_KERNELS = ("hash_probe", "csr_expand", "compact", "radix_rank")
+# every trie build's sort and hash table go through both scans
+SCAN_KERNELS = ("digit_counts", "max_scan")
 
 
 def fail(msg: str):
@@ -374,6 +386,21 @@ def kernel_modules():
 
     return {k: importlib.import_module(f"repro_torch.kernels.{m}")
             for k, (m, _s, _r) in KERNELS.items()}
+
+
+def launch_counts(mods) -> dict:
+    """Each kernel's launches so far, read from its module's counter (one
+    for each of seg_scan's two entry points: _build.counter)."""
+    from repro_torch.kernels import _build
+
+    return {k: getattr(m, _build.counter(k)) for k, m in mods.items()}
+
+
+def set_launches(mods, counts: dict) -> None:
+    from repro_torch.kernels import _build
+
+    for k, n in counts.items():
+        setattr(mods[k], _build.counter(k), n)
 
 
 # ---------------------------------------------------------------------------
@@ -908,7 +935,7 @@ def serving_path(device: str, seed: int, workloads, sync, slots: int = 16):
             drain_serial(trace, opts)
         sync()
         cold_s = time.perf_counter() - t
-        before = {k: m.launches for k, m in mods.items()}
+        before = launch_counts(mods)
         torch.cuda.reset_peak_memory_stats()
         seeded_before = TRACE.seeded_dispatches
         t = time.perf_counter()
@@ -927,7 +954,7 @@ def serving_path(device: str, seed: int, workloads, sync, slots: int = 16):
              "p50_ms": float(np.percentile(lat, 50)) * 1e3,
              "p99_ms": float(np.percentile(lat, 99)) * 1e3,
              "dispatches": eng.dispatches if mode == "batched" else len(trace),
-             "launches": {k: m.launches - before[k] for k, m in mods.items()},
+             "launches": {k: n - before[k] for k, n in launch_counts(mods).items()},
              "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
         if mode == "batched":
             r.update(degraded=eng.degraded, faults_absorbed=eng.faults_absorbed,
@@ -985,9 +1012,9 @@ def serving_path(device: str, seed: int, workloads, sync, slots: int = 16):
         return TRACE.seeded_dispatches > before
 
     def launches(fn):
-        before = {k: m.launches for k, m in mods.items()}
+        before = launch_counts(mods)
         fn()
-        return {k: m.launches - before[k] for k, m in mods.items() if k in JOIN_KERNELS}
+        return {k: n - before[k] for k, n in launch_counts(mods).items() if k in JOIN_KERNELS}
 
     def measured(step, picks):
         return {"selected_rows": int(sum(out_deg[trace[i][4]["a"]] for i in picks)),
@@ -1343,7 +1370,7 @@ def analysis_path(device: str, seed: int, workloads, ref, sync):
             "tiles": [cp.tiles for cp in runner._as_chain(runner.cap_plan).stages],
             "syncs": trace.syncs, "sync_count": syncs, "read_backs": runner.warm_read_backs,
             "sync_sites": trace.sync_sites,
-            "launches": {k: trace.launches[k] for k in JOIN_KERNELS},
+            "launches": {k: trace.launches[k] for k in JOIN_KERNELS + SCAN_KERNELS},
             "ops": n_ops, "ops_limit": runner_limits(runner)["ops"],
             "ops_per_schedule_op": n_ops / schedule_ops(runner),
             "uploads": trace.uploads, "findings": [str(d) for d in rep]}
@@ -1475,10 +1502,10 @@ def spmd_cell(name, q, rels, num_shards: int, want: int, group, device: str, syn
         times.append((time.perf_counter() - t) * 1e3)
         if got != want:
             fail(f"distributed {name} x{num_shards} warm call {i}: {got} != oracle {want}")
-    before = {k: m.launches for k, m in mods.items()}
+    before = launch_counts(mods)
     with TRANSFERS.record() as crossings:
         syncs = sync_count(ctr)
-    launches = {k: m.launches - before[k] for k, m in mods.items()}
+    launches = {k: n - before[k] for k, n in launch_counts(mods).items()}
     # the frontier one warm run needs per node (max over shards) beside
     # its capacities, and the device time of one warm call
     _count, need_expand, _nc = ctr.run_once(ctr.cap_plan)
@@ -1642,12 +1669,12 @@ def launch_child(what: str, out: str, seed: int) -> int:
         from repro_torch.launch import dryrun_join
 
         mods = kernel_modules()
-        for m in mods.values():
-            m.launches = 0
+        before = launch_counts(mods)
         with capture_largest() as seen:
             recs = (dryrun_join.lower_join(False, seed=seed)
                     + dryrun_join.lower_join(True, seed=seed))
-        torch.save({"recs": recs, "launches": {name: m.launches for name, m in mods.items()},
+        torch.save({"recs": recs, "launches": {k: n - before[k] for k, n in
+                                               launch_counts(mods).items()},
                     "seen": {name: tuple(a.cpu() if isinstance(a, torch.Tensor) else a
                                          for a in args)
                              for name, (_size, args) in seen.items()}}, out)
@@ -1762,8 +1789,8 @@ def launch_path(device: str, seed: int) -> dict:
         joined = torch.load(finish(start("join"), 600), weights_only=False)
         rec = {"card": card_line(), "join": [], "lm": [], "join_s": time.perf_counter() - t}
         mods = kernel_modules()
-        for name, n in joined["launches"].items():
-            mods[name].launches += n
+        now = launch_counts(mods)
+        set_launches(mods, {k: now[k] + n for k, n in joined["launches"].items()})
         queries = {str(q): (name, q) for name, q in (("triangle", triangle_query()),
                                                       ("clover", clover_query()))}
         for r in joined["recs"]:
@@ -2492,14 +2519,13 @@ def kernel_counter(device: str):
     base = {}
 
     def reset():
-        for m in mods.values():
-            m.launches = 0
+        set_launches(mods, dict.fromkeys(mods, 0))
         base.update(_build.plain_calls)
 
     def read():
         if device == "cpu":
             return {k: _build.plain_calls[k] - base[k] for k in mods}
-        return {k: m.launches for k, m in mods.items()}
+        return launch_counts(mods)
 
     return reset, read
 
@@ -2660,7 +2686,7 @@ def timed_calls(name, fn, want, sync, reps: int = 3) -> dict:
     import torch
 
     mods = kernel_modules()
-    before = {k: m.launches for k, m in mods.items()}
+    before = launch_counts(mods)
     torch.cuda.reset_peak_memory_stats()
     times = []
     for i in range(reps + 1):
@@ -2672,7 +2698,7 @@ def timed_calls(name, fn, want, sync, reps: int = 3) -> dict:
             fail(f"{name} call {i}: {out} != oracle {want}")
     return {"first_ms": times[0], "median_ms": float(np.median(times[1:])),
             "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
-            "launches": {k: m.launches - before[k] for k, m in mods.items()}}
+            "launches": {k: n - before[k] for k, n in launch_counts(mods).items()}}
 
 
 def chain4_workload(seed: int, n: int = 60_000, dom: int = 4_000):
@@ -2872,6 +2898,20 @@ def intersect_shapes(seed: int, device) -> dict[str, tuple]:
     return {k: tuple(torch.as_tensor(x).to(device) for x in ab) for k, ab in shapes.items()}
 
 
+def scan_shapes(seed: int, device) -> dict[str, dict]:
+    """The trie build's scans at SSB SF 10's lineorder size, 60,000,000
+    rows, which a cold SSB query sorts (each (16, N) count table then
+    passes 2^31 bytes): uniform digits, and a column uniform over int32."""
+    import torch
+
+    n = 60_000_000
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    digit = torch.randint(0, 16, (n,), device=device, dtype=torch.int32, generator=g)
+    x = torch.randint(-(2**31), 2**31 - 1, (n,), device=device, dtype=torch.int32, generator=g)
+    return {"digit_counts": {"ssb_lineorder": (digit,)}, "max_scan": {"ssb_lineorder": (x,)}}
+
+
 def intersect_numpy(a: np.ndarray, b: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     """K5's function from numpy's searchsorted: (mask, pos)."""
     pos = np.searchsorted(b, a)
@@ -2911,7 +2951,7 @@ def capture_largest(keep=None):
     expansion's size is its capacity times its search depth. `keep(name,
     args)`, if given, picks the calls that may be recorded."""
     import torch
-    from repro_torch.kernels import ops, radix_sort
+    from repro_torch.kernels import ops, radix_sort, seg_scan
 
     seen: dict[str, tuple] = {}
 
@@ -2935,6 +2975,8 @@ def capture_largest(keep=None):
         wrap(radix_sort, "radix_rank", "radix_rank", lambda c, kd, kt: kd.shape[0]),
         # the same pass's segment starts and digits, for K4's library call
         wrap(radix_sort, "_radix_pass", "radix_pass", lambda p, st, sl, d: p.shape[0]),
+        wrap(seg_scan, "digit_counts", "digit_counts", lambda d: d.shape[0]),
+        wrap(seg_scan, "max_scan", "max_scan", lambda x: x.shape[0]),
     ]
     try:
         yield seen
@@ -3194,6 +3236,21 @@ def edge_cases(device):
     ]
     b = np.unique(rng.integers(0, 1 << 20, 10_000))[:5000]
     lo32, hi32 = -(2**31), 2**31 - 1
+    # the scans' tiles hold 4,096 rows, each warp's 512
+    cases["digit_counts"] = [
+        (t([3]),),  # N = 1
+        (t(rng.integers(0, 16, 31)),),  # part of one warp's step
+        (t(np.full(4097, 9)),),  # one digit, a tile and a row
+        (t(rng.integers(0, 16, 4097)),),
+        (t(np.repeat(np.arange(16), 700)),),  # runs across warps and tiles
+    ]
+    cases["max_scan"] = [
+        (t([-5]),),  # N = 1
+        (t(rng.integers(lo32, hi32, 4097, dtype=np.int64)),),  # negatives
+        (t(np.concatenate([[lo32], rng.integers(lo32, lo32 + 9, 9000)])),),  # at INT_MIN
+        (t(np.arange(10_000)),),  # monotone
+        (t(np.full(8193, -7)),),  # constant, two tiles and a row
+    ]
     full = np.unique(np.concatenate([[lo32, hi32], rng.integers(lo32, hi32, 3000)]))
     dense = np.append(np.arange(1000, 51_000), hi32)  # 50,000 keys and one far outlier
     cases["intersect"] = [
@@ -3407,13 +3464,19 @@ def profiled(fn, calls: int, cold: bool = False, cpu: bool = False):
 def device_ms(fn, iters: int = 20, warmup: int = 3, cold: bool = False) -> float:
     """Per-call device time: the summed durations of every kernel (and
     device copy or fill) the call ran, from torch.profiler's CUDA trace
-    of `iters` calls after `warmup` (a guarded session, profiled())."""
+    of `iters` calls after `warmup` (a guarded session, profiled()). Each
+    call's output is dropped as soon as it is made: 20 of a 60M-row scan's
+    (7.7 GB each) would not fit on the card."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    events, _ = profiled(fn, iters, cold=cold)
+
+    def call():
+        fn()
+
+    events, _ = profiled(call, iters, cold=cold)
     return sum(e.self_device_time_total for e in events) / iters / 1e3
 
 
@@ -3487,6 +3550,12 @@ def bounds(name, args, reach=None) -> tuple[float, float]:
         # a read, b read, mask (1 byte) and pos (4 bytes) written; a
         # compare, a select and two index updates per search step
         return 4 * q + 4 * n + q + 4 * q, q * (4 * n.bit_length() + 3)
+    if name == "digit_counts":  # both (16, N) tables written; a compare and two adds an entry
+        (digit,) = args
+        return nb(digit) + 2 * 16 * nb(digit), 3 * 16 * digit.shape[0]
+    if name == "max_scan":  # a max a row
+        (x,) = args
+        return 2 * nb(x), x.shape[0]
     csum, kd, kt = args
     return (nb(csum) + nb(kd) + nb(kt) + 4 * kd.shape[0],
             kd.shape[0] * 4 * kd.shape[0].bit_length())
@@ -3496,8 +3565,24 @@ def library_call(name, args, captured=None):
     """One PyTorch call computing the same function, where there is one.
     K4's is a stable argsort over the pass's composite (segment, digit)
     key, which must give the kernel's permutation; K5's a searchsorted
-    plus the gather, compare and select that make it the same function."""
+    plus the gather, compare and select that make it the same function;
+    the digit counts' the two cumsums over a one-hot made beforehand; the
+    max-scan's torch.cummax."""
     import torch
+
+    if name == "digit_counts":
+        (digit,) = args
+        radix = torch.arange(16, dtype=torch.int32, device=digit.device)
+        onehot = (radix[:, None] == digit[None, :]).to(torch.int32)
+
+        def cumsums():
+            csum = torch.cumsum(onehot, dim=1, dtype=torch.int32)
+            return csum, torch.cumsum(csum, dim=0, dtype=torch.int32)
+
+        return cumsums
+    if name == "max_scan":
+        (x,) = args
+        return lambda: torch.cummax(x, dim=0)
 
     if name == "radix_rank":
         _perm, starts, _seg_last, digit = captured["radix_pass"]
@@ -3706,11 +3791,10 @@ def main(argv=None) -> int:
     def drive(path, kernels, fn, *fargs, **fkw):
         """Run one path with every launch count set to 0 just before it and
         read just after; fail if a kernel of the path never launched."""
-        for m in mods.values():
-            m.launches = 0
+        set_launches(mods, dict.fromkeys(mods, 0))
         t = time.perf_counter()
         out = fn(*fargs, **fkw)
-        counts = {name: m.launches for name, m in mods.items()}
+        counts = launch_counts(mods)
         print(f"{path} launches: " + json.dumps(counts), flush=True)
         print(f"{path} took {time.perf_counter() - t:.1f} s", flush=True)
         for name in kernels:
@@ -3719,22 +3803,24 @@ def main(argv=None) -> int:
         return out, counts
 
     sync = torch.cuda.synchronize
-    workloads, launches = drive("main path", JOIN_KERNELS, main_path, device, args.seed,
+    # every path that builds tries launches K4 and both of the build's scans
+    builds = JOIN_KERNELS + SCAN_KERNELS
+    workloads, launches = drive("main path", builds, main_path, device, args.seed,
                                 sf=10, star_n=6_000_000, star_dom=300_000, sync=sync)
-    paths = dict.fromkeys(JOIN_KERNELS, "main path")
+    paths = dict.fromkeys(builds, "main path")
     # the streaming path: the standing SF 10 triangle and the stage replay
-    (q1_seen, replay_seen), _ = drive("streaming path", JOIN_KERNELS, lambda: (
+    (q1_seen, replay_seen), _ = drive("streaming path", builds, lambda: (
         streaming_triangle(device, args.seed, sf=10, sync=sync),
         stage_replay(device, args.seed, sync=sync)))
     # the serving path: batched and serial drains at SF 10, then chaos at SF 1
-    serving_seen, serving_launches = drive("serving path", JOIN_KERNELS, serving_path, device,
+    serving_seen, serving_launches = drive("serving path", builds, serving_path, device,
                                            args.seed, workloads, sync)
-    _, chaos_launches = drive("chaos path", JOIN_KERNELS, chaos_path, device, args.seed, sync)
+    _, chaos_launches = drive("chaos path", builds, chaos_path, device, args.seed, sync)
     rewarm(workloads)
     eager_ref = eager_oracles(args.seed, workloads, sync)
-    eager_seen, eager_launches = drive("eager path", JOIN_KERNELS, eager_path, device,
+    eager_seen, eager_launches = drive("eager path", builds, eager_path, device,
                                        args.seed, workloads, eager_ref, sync)
-    _, analysis_launches = drive("analysis path", JOIN_KERNELS, analysis_path, device,
+    _, analysis_launches = drive("analysis path", builds, analysis_path, device,
                                  args.seed, workloads, eager_ref, sync)
     distributed_seen, distributed_launches = drive("distributed path",
                                                    ("hash_probe", "csr_expand"),
@@ -3771,7 +3857,8 @@ def main(argv=None) -> int:
                              **{f"main_{layout}": (slots, table_keys, query_layout(
                                  main_q.cpu().numpy(), device, layout), budget)
                                 for layout in ("rows", "cols")}},
-              "intersect": intersect_shapes(args.seed, device)}
+              "intersect": intersect_shapes(args.seed, device),
+              **scan_shapes(args.seed, device)}
     errors = parity(mods, captured, {"standing-q1 ingest": q1_seen,
                                      "stage replay": replay_seen,
                                      "batched dispatch": serving_seen, **distributed_seen,

@@ -61,13 +61,15 @@ from repro_torch.analysis.diagnostics import Report
 from repro_torch.core.transfers import TRANSFERS
 from repro_torch.kernels import _build
 
-# kernel name (as in _build.KERNELS) -> the module holding its wrapper
+# launcher name (as in _build._SIGNATURES) -> the module holding its wrapper
 _KERNEL_MODULES = {
     "hash_probe": "hash_probe",
     "csr_expand": "csr_expand",
     "compact": "compact",
     "radix_rank": "radix_sort",
     "intersect": "intersect",
+    "digit_counts": "seg_scan",
+    "max_scan": "seg_scan",
 }
 
 # Ops whose output shape or value the host must read from the device: each
@@ -221,13 +223,13 @@ def trace_runner(runner, relations, *, filter_consts=None) -> LaunchTrace:
         )
         filter_consts = np.zeros(shape, np.int32)
     mods = _modules()
-    launches0 = {k: m.launches for k, m in mods.items()}
+    launches0 = {k: getattr(m, _build.counter(k)) for k, m in mods.items()}
     plain0 = dict(_build.plain_calls)
     builds0 = TRIE_CACHE.builds + TRIE_CACHE.table_builds
     compiles0 = runner.compiles
     with TRANSFERS.record() as crossings, _Recorder() as rec:
         runner.run_relations(relations, filter_consts=filter_consts)
-    launches = {k: m.launches - launches0[k] for k, m in mods.items()}
+    launches = {k: getattr(m, _build.counter(k)) - launches0[k] for k, m in mods.items()}
     counted = [f"{kind} {what}" for kind, what, _n in crossings]
     counted_uploads = [(what, n) for kind, what, n in crossings if kind == "upload"]
     return LaunchTrace(

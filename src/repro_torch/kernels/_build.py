@@ -1,15 +1,18 @@
 """Build the port's CUDA kernels with nvcc and load them through ctypes.
 
 Every kernel lives in `csrc/<name>.cu` behind a plain C launcher (see
-csrc/common.cuh). At first use `launcher(name)` compiles that one source
-for Hopper (sm_90a) into `build/repro_torch_kernels/` at the repository
-root, named by a digest of the flags, the source and every header under
-csrc/, so that an edited kernel or header is rebuilt, and loads it with
-ctypes. `build(names)` compiles several sources at once, one nvcc process
-each, and returns what ptxas reports about registers and spills;
-`compile_sources` and `use_library` build and launch another version of
-a kernel's source (tools/k1_ab.py). Nothing
-here falls back: a missing nvcc or a failed compile raises.
+csrc/common.cuh); a library may export several launchers, each named in
+`_SIGNATURES`, and its wrapper module then counts each launcher's
+launches apart (`counter`). At first use
+`launcher(name)` compiles that one source for Hopper (sm_90a) into
+`build/repro_torch_kernels/` at the repository root, named by a digest
+of the flags, the source and every header under csrc/, so that an edited
+kernel or header is rebuilt, and loads it with ctypes. `build(names)`
+compiles several sources at once, one nvcc process each, and returns
+what ptxas reports about registers and spills; `compile_sources` and
+`use_library` build and launch another version of a kernel's source
+(tools/k1_ab.py). Nothing here falls back: a missing nvcc or a failed
+compile raises.
 """
 from __future__ import annotations
 
@@ -25,29 +28,33 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-KERNELS = ("hash_probe", "csr_expand", "compact", "radix_rank", "intersect")
+KERNELS = ("hash_probe", "csr_expand", "compact", "radix_rank", "intersect", "seg_scan")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# launcher symbol and argument types of each library's C interface
+# launcher symbol and argument types of each launcher of the C interfaces
 _SIGNATURES = {
     "hash_probe": ("hash_probe_launch", (_P, _P, _P, _L, _L, _P, _I, _I, _I, _I, _I, _P)),
     "csr_expand": ("csr_expand_launch", (_P, _P, _P, _P, _P, _I, _I, _P)),
     "compact": ("compact_launch", (_P, _P, _P, _I, _I, _P)),
     "radix_rank": ("radix_rank_launch", (_P, _P, _P, _P, _I, _P)),
     "intersect": ("intersect_launch", (_P, _P, _P, _P, _P, _I, _I, _I, _P)),
+    "digit_counts": ("digit_counts_launch", (_P, _P, _P, _P, _L, _I, _P)),
+    "max_scan": ("max_scan_launch", (_P, _P, _P, _L, _I, _P)),
 }
+# launchers that share a library (csrc/<library>.cu) with others
+_LIBRARY = {"digit_counts": "seg_scan", "max_scan": "seg_scan"}
 
 _lock = threading.Lock()
 _launchers: dict[str, tuple] = {}
 
-# Calls of each kernel's plain version: the CPU branch of its wrapper, where
-# the card would launch the kernel. A CPU run of the launch audit counts
-# these in place of launches, and counts no tensor op made inside one.
-plain_calls = dict.fromkeys(KERNELS, 0)
+# Calls of each launcher's plain version: the CPU branch of its wrapper,
+# where the card would launch the kernel. A CPU run of the launch audit
+# counts these in place of launches, and counts no tensor op made inside one.
+plain_calls = dict.fromkeys(_SIGNATURES, 0)
 _plain_depth = 0
 
 
@@ -106,8 +113,8 @@ def build(names=KERNELS, *, verbose: bool = False) -> dict[str, str]:
 
 
 def load(name: str, path) -> tuple:
-    """(C launcher, error-string function) of kernel `name`'s library at
-    `path`."""
+    """(C launcher, error-string function) of launcher `name` in the
+    library at `path`."""
     lib = ctypes.CDLL(str(path))
     symbol, argtypes = _SIGNATURES[name]
     fn = getattr(lib, symbol)
@@ -125,14 +132,22 @@ def use_library(name: str, path) -> None:
         _launchers[name] = load(name, path)
 
 
+def counter(name: str) -> str:
+    """The attribute of launcher `name`'s wrapper module that counts its
+    launches on the card: `launches`, or `<name>_launches` where the
+    module wraps several launchers of one library (seg_scan)."""
+    return f"{name}_launches" if name in _LIBRARY else "launches"
+
+
 def launcher(name: str):
-    """The C launcher of kernel `name`, building its library on first use."""
+    """The C launcher `name`, building its library on first use."""
     with _lock:
         hit = _launchers.get(name)
         if hit is None:
-            path = _lib_path(name)
+            lib = _LIBRARY.get(name, name)
+            path = _lib_path(lib)
             if not path.exists():
-                build((name,))
+                build((lib,))
             hit = load(name, path)
             _launchers[name] = hit
     return hit

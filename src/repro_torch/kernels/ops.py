@@ -2,8 +2,8 @@
 wrappers that prepare each kernel's inputs.
 
 Every op runs on the device of its input tensors. The hash-table *build*
-is sort-based and stays in plain tensor code: after sorting by home slot,
-slot assignment is `slot_i = i + cummax(h_i - i)` (an associative scan),
+is sort-based: after sorting by home slot, slot assignment is
+`slot_i = i + cummax(h_i - i)` (an associative scan, seg_scan.max_scan),
 so a sort and a scan are all it needs. The probe, the expansion, the
 compaction, the radix rank and the sorted-set intersection are the
 kernels (K1-K5); their prefix sums are computed here, outside the
@@ -15,6 +15,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.kernels import seg_scan
 from repro_torch.kernels.compact import compact
 from repro_torch.kernels.csr_expand import csr_expand
 from repro_torch.kernels.hash_probe import PROBE_BUDGET, hash_probe, mix32
@@ -39,7 +40,7 @@ def _build(keys: torch.Tensor, cap: int, budget: int = PROBE_BUDGET) -> Table:
     order = torch.argsort(h, stable=True).to(torch.int32)  # jnp.argsort is stable
     hs = h[order]
     idx = torch.arange(n, dtype=torch.int32, device=device)
-    disp = torch.cummax(hs - idx, dim=0).values
+    disp = seg_scan.max_scan(hs - idx)
     slot = idx + disp
     max_disp = (
         (slot - hs).max() if n else torch.zeros((), dtype=torch.int32, device=device)

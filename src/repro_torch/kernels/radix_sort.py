@@ -9,9 +9,11 @@ scale with the key width of that one var, not with the whole key tuple
 
 One pass over the current permutation works on three arrays: each row's
 digit, csum[r, i] (the inclusive count of digit r among rows 0..i, kept
-digit-major) and the row's segment bounds. Written as a gather, output
-slot j knows its digit kd[j] and target rank kt[j] (from the per-segment
-digit histograms), and its source row is the leftmost i with
+digit-major; seg_scan.digit_counts) and the row's segment bounds (the
+running maximum of segment-start positions; seg_scan.max_scan). Written
+as a gather, output slot j knows its digit kd[j] and target rank kt[j]
+(from the per-segment digit histograms), and its source row is the
+leftmost i with
 csum[kd[j], i] >= kt[j]: one binary search per slot, which is the kernel
 (`radix_rank`). Every pass keeps segment boundaries, so stability gives
 the exact lexicographic order.
@@ -27,7 +29,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, seg_scan
 
 RBITS = 4
 RADIX = 1 << RBITS
@@ -75,7 +77,7 @@ def _seg_starts(seg: torch.Tensor) -> torch.Tensor:
     first = torch.ones(n, dtype=torch.bool, device=seg.device)
     first[1:] = seg[1:] != seg[:-1]
     # running max of the last segment-start position
-    return torch.cummax(torch.where(first, idx, 0), dim=0).values
+    return seg_scan.max_scan(torch.where(first, idx, 0))
 
 
 def _radix_pass(perm, starts, seg_last, digit: torch.Tensor) -> torch.Tensor:
@@ -86,13 +88,10 @@ def _radix_pass(perm, starts, seg_last, digit: torch.Tensor) -> torch.Tensor:
     n = perm.shape[0]
     device = perm.device
     idx = torch.arange(n, dtype=torch.int32, device=device)
-    radix = torch.arange(RADIX, dtype=torch.int32, device=device)
     # digit-major (R, N) prefix counts: csum[r, i] counts digit r among rows
-    # 0..i, pcs[r, i] the rows <= i with digit <= r. Both scans run along
-    # contiguous memory, and the kernel's search reads one digit's column.
-    onehot = (radix[:, None] == digit[None, :]).to(torch.int32)
-    csum = torch.cumsum(onehot, dim=1, dtype=torch.int32)
-    pcs = torch.cumsum(csum, dim=0, dtype=torch.int32)
+    # 0..i, pcs[r, i] the rows <= i with digit <= r. The kernel's search
+    # reads one digit's column of csum.
+    csum, pcs = seg_scan.digit_counts(digit)
     start1 = (starts - 1).clamp(0, n - 1)
     at_start = starts > 0
 

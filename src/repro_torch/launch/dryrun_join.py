@@ -39,12 +39,16 @@ DOMAIN = 32768
 
 
 def kernel_counts() -> dict[str, int]:
-    """K1-K5 launches on the card, their plain versions' calls on the CPU."""
-    from repro_torch.kernels import _build, compact, csr_expand, hash_probe, intersect, radix_sort
+    """K1-K5's and the trie build's scans' launches on the card, their
+    plain versions' calls on the CPU."""
+    from repro_torch.kernels import (_build, compact, csr_expand, hash_probe, intersect,
+                                     radix_sort, seg_scan)
 
     mods = {"hash_probe": hash_probe, "csr_expand": csr_expand, "compact": compact,
-            "radix_rank": radix_sort, "intersect": intersect}
-    return {name: m.launches + _build.plain_calls[name] for name, m in mods.items()}
+            "radix_rank": radix_sort, "intersect": intersect, "digit_counts": seg_scan,
+            "max_scan": seg_scan}
+    return {name: getattr(m, _build.counter(name)) + _build.plain_calls[name]
+            for name, m in mods.items()}
 
 
 def fragment(q, rows: int, seed: int, domain: int = DOMAIN) -> dict[str, dict[str, np.ndarray]]:

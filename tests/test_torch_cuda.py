@@ -14,7 +14,8 @@ import torch
 
 from repro_torch.core import TRIE_CACHE, ExecOptions, compiled_free_join, relcache
 from repro_torch.core.compiled import _LevelOps, device_columns
-from repro_torch.kernels import compact, csr_expand, hash_probe, intersect, ops, radix_sort
+from repro_torch.kernels import (_build, compact, csr_expand, hash_probe, intersect, ops,
+                                 radix_sort, ref, seg_scan)
 from repro_torch.relational.datagen import lowsel_star
 from repro_torch.relational.relation import Relation
 from repro_torch.relational.schema import triangle_query
@@ -36,9 +37,10 @@ def on(device, a) -> torch.Tensor:
 
 
 def assert_kernel_matches_plain(module, name, *args):
-    launches = module.launches
+    launches = getattr(module, _build.counter(name))
     got = getattr(module, name)(*args)
-    assert module.launches == launches + 1, "one launch per wrapper call on the card"
+    assert getattr(module, _build.counter(name)) == launches + 1, \
+        "one launch per wrapper call on the card"
     want = getattr(module, f"{name}_plain")(*args)
     torch.cuda.synchronize()
     for g, w in zip(got if isinstance(got, tuple) else (got,),
@@ -144,6 +146,87 @@ def test_segmented_sort_on_card(cuda, rng):
     cols = [rng.integers(0, 300, 100_000), rng.integers(0, 70_000, 100_000)]
     got = radix_sort.segmented_sort([on(cuda, c) for c in cols], (9, 17))
     np.testing.assert_array_equal(got.cpu().numpy(), np.lexsort(tuple(reversed(cols))))
+
+
+# the scans' sizes: one row, part of a warp's 32-row step, a 4,096-row tile
+# and a row, and many tiles
+SCAN_SIZES = [1, 31, 4097, (1 << 20) + 7]
+SCAN_VALUES = ["random", "negative", "monotone", "constant"]
+
+
+def scan_values(kind: str, n: int, rng) -> np.ndarray:
+    """A max-scan input: uniform over int32, uniform just above INT32_MIN
+    (the running maximum moves often), a random walk up from -n (it moves
+    at most rows), or one negative value."""
+    if kind == "random":
+        return rng.integers(-(2**31), 2**31 - 1, n, dtype=np.int64)
+    if kind == "negative":
+        return -(2**31) + rng.integers(0, n + 1, n)
+    if kind == "monotone":
+        return np.cumsum(rng.integers(0, 3, n)) - n
+    return np.full(n, -7)
+
+
+@pytest.mark.parametrize("n", SCAN_SIZES)
+@pytest.mark.parametrize("digits", ["uniform", "equal"])
+def test_digit_counts_kernel(cuda, n, digits, rng):
+    """Both digit-major count tables, bit for bit."""
+    digit = rng.integers(0, seg_scan.RADIX, n) if digits == "uniform" else np.full(n, 11)
+    assert_kernel_matches_plain(seg_scan, "digit_counts", on(cuda, digit))
+
+
+def test_digit_counts_kernel_tables_past_2_gib(cuda, rng):
+    """At 2^25 + 7 rows each (16, N) table passes 2^31 bytes: the kernel's
+    offsets into it are 64-bit."""
+    n = (1 << 25) + 7
+    assert 16 * n * 4 > 2**31
+    assert_kernel_matches_plain(seg_scan, "digit_counts", on(cuda, rng.integers(0, 16, n)))
+
+
+@pytest.mark.parametrize("n", SCAN_SIZES)
+@pytest.mark.parametrize("values", SCAN_VALUES)
+def test_max_scan_kernel(cuda, n, values, rng):
+    assert_kernel_matches_plain(seg_scan, "max_scan", on(cuda, scan_values(values, n, rng)))
+
+
+@pytest.mark.parametrize("case", ["one_segment", "singletons", "presorted"])
+def test_segmented_sort_cases_on_card(cuda, case, rng):
+    """The sort's permutation equals np.lexsort's where the first var is one
+    segment of every row, where every segment holds one row (a unique
+    first var), and from a presorted first var; the scans launch."""
+    n = 50_000
+    if case == "one_segment":
+        cols, bits = [rng.integers(0, 1 << 20, n)], (20,)
+    elif case == "singletons":
+        cols, bits = [rng.permutation(n), rng.integers(0, 1000, n)], (16, 10)
+    else:
+        cols, bits = [rng.integers(0, 300, n), rng.integers(0, 70_000, n)], (9, 17)
+    dev = [on(cuda, c) for c in cols]
+    launches = (seg_scan.digit_counts_launches, seg_scan.max_scan_launches)
+    if case == "presorted":
+        first = radix_sort.segmented_sort(dev[:1], bits[:1])
+        got = radix_sort.segmented_sort(dev, bits, init_order=first, presorted=1)
+    else:
+        got = radix_sort.segmented_sort(dev, bits)
+    assert seg_scan.digit_counts_launches > launches[0]
+    assert seg_scan.max_scan_launches > launches[1]
+    want = ref.segmented_sort_ref([on("cpu", c) for c in cols])
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("n,k", [(1, 1), (4097, 2), (300_000, 3)])
+def test_build_table_on_card_matches_cpu(cuda, n, k, rng):
+    """The hash table's slots and max displacement, card against CPU, its
+    displacement scan one max_scan launch."""
+    keys = np.unique(rng.integers(-(1 << 24), 1 << 24, (2 * n + 1, k)), axis=0)[:n]
+    rng.shuffle(keys)
+    launches = (seg_scan.digit_counts_launches, seg_scan.max_scan_launches)
+    card = ops.build_table(on(cuda, keys))
+    assert (seg_scan.digit_counts_launches, seg_scan.max_scan_launches) == (
+        launches[0], launches[1] + 1)
+    cpu = ops.build_table(on("cpu", keys))
+    assert torch.equal(card.slots.cpu(), cpu.slots)
+    assert int(card.max_disp) == int(cpu.max_disp)
 
 
 @pytest.mark.parametrize("agg", ["count", None])

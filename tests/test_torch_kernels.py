@@ -17,8 +17,10 @@ from repro.kernels.csr_expand import csr_expand_pallas
 from repro.kernels.hash_probe import QBLK, hash_probe_pallas
 from repro.kernels.hash_probe import mix32 as jmix32
 from repro.kernels.radix_sort import radix_rank_pallas
-from repro_torch.kernels import compact, csr_expand, hash_probe, intersect, ops, radix_sort, ref
-from test_torch_cuda import INTERSECT_HARD, intersect_hard_case, k1_layout_cases
+from repro_torch.kernels import (compact, csr_expand, hash_probe, intersect, ops, radix_sort, ref,
+                                 seg_scan)
+from test_torch_cuda import (INTERSECT_HARD, SCAN_VALUES, intersect_hard_case, k1_layout_cases,
+                             scan_values)
 
 import chip_smoke
 
@@ -238,6 +240,60 @@ def test_radix_rank_vs_pallas(n, rng):
     want = radix_rank_pallas(jnp.asarray(csum), jnp.asarray(kd), jnp.asarray(kt), interpret=True)
     got = radix_sort.radix_rank(t32(csum.T), t32(kd), t32(kt))  # the port is digit-major
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# ---- the trie build's scans (seg_scan) ------------------------------------------
+
+# one row, part of a warp's 32-row step, a 4,096-row tile and a row, many tiles
+SCAN_SIZES = [1, 31, 4097, 70_001]
+
+
+@pytest.mark.parametrize("n", SCAN_SIZES)
+@pytest.mark.parametrize("digits", ["uniform", "equal"])
+def test_digit_counts_plain_vs_numpy(n, digits, rng):
+    """Both tables are numpy's cumsum over the one-hot, along the rows and
+    then along the digits."""
+    digit = rng.integers(0, seg_scan.RADIX, n) if digits == "uniform" else np.full(n, 11)
+    onehot = np.arange(seg_scan.RADIX)[:, None] == digit[None, :]
+    csum, pcs = seg_scan.digit_counts(t32(digit))
+    assert csum.dtype == pcs.dtype == torch.int32
+    np.testing.assert_array_equal(csum.numpy(), np.cumsum(onehot, axis=1))
+    np.testing.assert_array_equal(pcs.numpy(), np.cumsum(np.cumsum(onehot, axis=1), axis=0))
+
+
+@pytest.mark.parametrize("n", SCAN_SIZES)
+@pytest.mark.parametrize("values", SCAN_VALUES)
+def test_max_scan_plain_vs_numpy(n, values, rng):
+    x = scan_values(values, n, rng).astype(np.int32)
+    got = seg_scan.max_scan(t32(x))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.maximum.accumulate(x))
+
+
+def test_scan_wrappers_reject_bad_inputs_and_count_only_launches():
+    """An empty column gives empty tables and calls nothing; a CPU tensor
+    runs the plain version, counted as a plain call of its own entry point,
+    never as a launch."""
+    from repro_torch.kernels import _build
+
+    names = ("digit_counts", "max_scan")
+    launches = [getattr(seg_scan, _build.counter(k)) for k in names]
+    plain = [_build.plain_calls[k] for k in names]
+    csum, pcs = seg_scan.digit_counts(t32([]))
+    assert csum.shape == pcs.shape == (seg_scan.RADIX, 0)
+    assert seg_scan.max_scan(t32([])).shape == (0,)
+    assert [_build.plain_calls[k] for k in names] == plain
+    seg_scan.digit_counts(t32([1, 2]))
+    assert [_build.plain_calls[k] for k in names] == [plain[0] + 1, plain[1]]
+    seg_scan.max_scan(t32([1, 2]))
+    assert [_build.plain_calls[k] for k in names] == [plain[0] + 1, plain[1] + 1]
+    with pytest.raises(ValueError, match="int32"):
+        seg_scan.max_scan(t32([1, 2]).long())
+    with pytest.raises(ValueError, match=r"\(N,\)"):
+        seg_scan.digit_counts(t32([[1, 2]]))
+    with pytest.raises(ValueError, match="contiguous"):
+        seg_scan.max_scan(t32([1, 0, 1, 0])[::2])
+    assert [getattr(seg_scan, _build.counter(k)) for k in names] == launches
 
 
 # ---- K5: sorted-set intersection ---------------------------------------------
